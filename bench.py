@@ -3,33 +3,27 @@
 
 Headline = the reference's own benchmark workload (sparse AddMatMat,
 m×n×k = 117×1023×2047, 25%-dense codebook-quantized B, fp32;
-/root/reference/src/test/blas_test.cc:32) run through this framework's
-jitted TPU path.  ``vs_baseline`` is the reference's published AVX2 figure
+reference src/test/blas_test.cc:32) run through this framework's
+jitted path.  ``vs_baseline`` is the reference's published AVX2 figure
 (~7.5 ms, kernel.cc:381) divided by our measured min time.
 """
 import json
-import sys
-
-sys.path.insert(0, "/root/repo")
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     from sparsematrix_tpu.bench.suite import bench_codebook_gemm
+    from sparsematrix_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     # the framework's recommended paths for this workload; the full
     # comparison matrix lives in the suite CLI
     rows = bench_codebook_gemm(
         check=True,
-        variants=("fused-pallas", "dense-dequant", "dense-dequant-bf16",
-                  "fused-pallas-bf16", "int8-gemm", "int16-gemm"),
+        variants=("csr-auto", "dense-dequant", "dense-dequant-bf16",
+                  "int8-gemm", "int16-gemm"),
     )
     # headline = fastest SPARSE path that passes the reference's oracle
-    # check (the dense-race rows — including the r4 prepacked lane — are
-    # the honesty races, not the headline)
+    # check (the dense-race rows are the honesty races, not the headline)
     sparse = [r for r in rows if "dense-race" not in r.name]
     ok = [r for r in sparse if r.checked] or sparse
     r = min(ok, key=lambda r: r.result.min_ms)
@@ -45,8 +39,8 @@ def main():
         "mean_ms": round(r.result.mean_ms, 4),
         "compile_ms": round(r.result.compile_ms, 1),
     }
-    # the on-chip honesty race (dense GEMM of the same problem on the
-    # same silicon — the reference harness's blas_test.cc:41 stance)
+    # the on-device honesty race (dense GEMM of the same problem on the
+    # same device — the reference harness's blas_test.cc:41 stance)
     for rr in rows:
         if rr.name == "codebook_gemm/dense-race-fp32":
             out["dense_race_fp32_ms"] = round(rr.result.min_ms, 4)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """MEASURED (simulated-mesh) scaling evidence on 1/2/4/8 virtual CPU
-devices (VERDICT r3 weak item 7).
+devices.
 
 A virtual CPU mesh shares one host's cores, so raw weak-scaling times
 mostly measure host serialization (total work grows with device count on
@@ -11,12 +11,13 @@ difference between the full distributed op and its local-compute twin
 model (parallel/scaling.py) predicts comm bytes growing ~linearly with
 device count; these rows validate that SHAPE with measured deltas.
 
-Run (CPU — safe alongside a TPU session):
+Run (CPU only — uses no card):
     python benchmarks/measure_sim_scaling.py
 writes benchmarks/pass_sim_scaling.json (mergeable by merge_results.py).
 """
 import functools
 import json
+import pathlib
 import sys
 import time
 
@@ -26,7 +27,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 
 def _force_devices(n=8):
@@ -140,7 +141,7 @@ def main():
               f"{t_local*1e3:.2f} ms, collective overhead "
               f"{overhead_ms:.2f} ms, model comm/dev "
               f"{model.comm_bytes_per_device}B", flush=True)
-    out = "/root/repo/benchmarks/pass_sim_scaling.json"
+    out = pathlib.Path(__file__).resolve().parent / "pass_sim_scaling.json"
     with open(out, "w") as fh:
         json.dump(rows_out, fh, indent=1)
     print("wrote", out)

@@ -48,8 +48,8 @@ def main():
                 continue
             prev = rows[key]
             # identical config measured in multiple sessions: keep the
-            # faster one IF both passed their checks (relay variance can
-            # be ~2x between sessions); otherwise the later row wins
+            # faster one IF both passed their checks (timings can vary
+            # ~2x between runs); otherwise the later row wins
             # (oracle/check fixes change `checked`).  Dense-race rows
             # carry no check but must ALSO keep their fastest session —
             # replacing a fast race with a slow-session one would

@@ -2,13 +2,18 @@
 
 A truncated Gaussian smoothing operator K (radius-24 band, dense within
 the band) is exactly the regime StripDense exists for: every 128-row
-strip touches one narrow column window, so SpMV is a batched full-tile
-MXU matmul rather than slab gathers.  We smooth a signal and recover it
+strip touches one narrow column window, so SpMV is one batched dense
+matvec over contiguous x windows rather than element gathers.  We smooth a signal and recover it
 by solving the Tikhonov system ``(K^T K + lam*I) x = K^T y`` with CG,
 where every matvec runs on the strip layout.
 
-Run: python examples/banded_deconv.py   (CPU or TPU)
+Run: python examples/banded_deconv.py   (CPU or GPU)
 """
+import pathlib
+import sys
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
 import numpy as np
 import scipy.sparse as sps
 
@@ -54,7 +59,7 @@ def main():
     rel = np.linalg.norm(x - x_true) / np.linalg.norm(x_true)
     print(f"CG iters={int(res.iters)}  relative recovery error={rel:.3f}")
     assert rel < 0.05
-    print("OK: banded deconvolution on the strip-dense MXU path")
+    print("OK: banded deconvolution on the strip-dense path")
 
 
 if __name__ == "__main__":

@@ -1,26 +1,25 @@
 """Distributed CG with per-shard block-IC(0) preconditioning — the
-round-3 solver stack end to end on a device mesh.
+solver stack end to end on a device mesh.
 
 Partition a 2-D Poisson system by row bands, factor each shard's
-diagonal block with IC(0) on the host, pack the factors for the WAVE
-solve engine (host-inverted diagonal blocks, MXU commits), shard the
-stacked plan pytrees over the mesh, and run the whole Krylov iteration
-inside one shard_map region: per iteration one all_gather (the search
-direction riding ICI), two scalar psums, and two local wave solves —
+diagonal block with IC(0) on the host, plan its level-scheduled solves,
+shard the stacked plan pytrees over the mesh, and run the whole Krylov
+iteration inside one shard_map region: per iteration one all_gather (the
+search direction), two scalar psums, and two local triangular solves —
 no other communication.
 
 Run: python examples/dist_block_precond_cg.py
-(runs on 8 simulated CPU devices; on a pod drop the CPU override at the
-top and the identical code runs on the real mesh)
+(runs on 8 simulated CPU devices; on a multi-GPU host drop the CPU
+override at the top and the identical code runs on the real mesh)
 """
 import pathlib
 import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# demonstrate the mesh composition on 8 simulated CPU devices (this
-# development environment has one real chip; on a pod, drop this block
-# and the code below runs unchanged on the real mesh).  The flags must
+# demonstrate the mesh composition on 8 simulated CPU devices (on a
+# multi-GPU host, drop this block and the code below runs unchanged on
+# the real mesh).  The flags must
 # be set before ANY backend is initialized.
 import os
 
@@ -63,7 +62,7 @@ def main():
     results = {}
     for label, M in (("plain", None),
                      ("jacobi", "jacobi"),
-                     ("block-IC(0) waves", block_ic0_precond(A, n_dev))):
+                     ("block-IC(0)", block_ic0_precond(A, n_dev))):
         res = dist_cg(part, b, mesh, precond=M, tol=1e-6, maxiter=800)
         x = np.asarray(res.x, np.float64)
         rel = (np.linalg.norm(Apo @ x - np.asarray(b))
@@ -72,11 +71,11 @@ def main():
         print(f"{label:>18s}: {int(res.iters):4d} iterations, "
               f"true ‖r‖/‖b‖ = {rel:.2e}")
 
-    assert results["block-IC(0) waves"][0] < results["jacobi"][0]
+    assert results["block-IC(0)"][0] < results["jacobi"][0]
     print(f"\nblock-IC(0) cut iterations "
-          f"{results['jacobi'][0] / results['block-IC(0) waves'][0]:.1f}× "
+          f"{results['jacobi'][0] / results['block-IC(0)'][0]:.1f}× "
           f"vs Jacobi on {n_dev} devices — and every preconditioner apply "
-          "was two wave solves per shard, zero collectives.")
+          "was two level-scheduled solves per shard, zero collectives.")
 
 
 if __name__ == "__main__":

@@ -3,19 +3,15 @@ of a lower-triangular operator from solution observations.
 
 Given observations ``x_obs = T_true^{-1} b`` for a handful of right-hand
 sides, fit the values of ``T`` on its (known) sparsity pattern by gradient
-descent on ``||T^{-1} b - x_obs||^2``.  The gradient flows through the
-wave-batched MXU solve via the implicit-function rule
-(``trisolve_waves_solve``): each backward pass is ONE transposed wave
-solve plus two pattern gathers — no unrolling, no inverse chain rule.
-
-The forward solve uses host-inverted diagonal blocks, so the plan must be
-refreshed whenever the values move: this example re-plans every outer
-step (host work), then runs a jitted inner loss/grad over all RHS — the
-pattern of a production implicit-diff pipeline (plan slow-changing
-operators rarely, differentiate often).
+descent on ``||T^{-1} b - x_obs||^2``.  The level-scheduled plan fixes the
+pattern once on the host; its value arrays (``offdiag_vals``,
+``diag_vals``) are ordinary pytree leaves, so ``jax.grad`` flows through
+the device-side level scan (``trisolve_apply``) with no re-planning while
+the values move.
 
 Run: python examples/implicit_fit.py
 """
+import dataclasses
 import pathlib
 import sys
 
@@ -24,13 +20,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import scipy.sparse as sps
 
 from sparsematrix_tpu.formats import CSR
-from sparsematrix_tpu.kernels.trisolve_waves import (
-    trisolve_waves_plan,
-    trisolve_waves_solve,
-)
+from sparsematrix_tpu.ops import trisolve_apply, trisolve_plan
 
 
 def main():
@@ -44,55 +38,47 @@ def main():
     c = np.concatenate([m.col[keep], np.arange(n)])
     v_true = np.concatenate([rng.uniform(-0.3, 0.3, keep.sum()),
                              rng.uniform(2.0, 3.0, n)]).astype(np.float32)
-    T_true = CSR.from_scipy(
-        sps.csr_matrix((v_true, (r, c)), shape=(n, n)))
+    T_true = CSR.from_scipy(sps.csr_matrix((v_true, (r, c)), shape=(n, n)))
+    plan_true = trisolve_plan(T_true, lower=True)
 
-    B = rng.standard_normal((n, k)).astype(np.float32)
-    plan_true = trisolve_waves_plan(T_true, lower=True)
-    from sparsematrix_tpu.kernels.trisolve_waves import \
-        trisolve_waves_apply_mm
-
-    X_obs = trisolve_waves_apply_mm(plan_true, jnp.asarray(B))
+    B = jnp.asarray(rng.standard_normal((n, k)).astype(np.float32))
+    solve_all = jax.vmap(trisolve_apply, in_axes=(None, 1), out_axes=1)
+    X_obs = solve_all(plan_true, B)
 
     # start from a perturbed operator on the same pattern
-    sp0 = T_true.to_scipy().tocsr()
-    vals = jnp.asarray(sp0.data * (1.0 + 0.25 * rng.standard_normal(
-        sp0.nnz).astype(np.float32)))
+    def perturb(a):
+        noise = rng.standard_normal(a.shape).astype(np.float32)
+        return a * (1.0 + 0.25 * noise)
 
-    def refit_plan(v):
-        spv = sps.csr_matrix(
-            (np.asarray(v), sp0.indices, sp0.indptr), shape=(n, n))
-        return trisolve_waves_plan(CSR.from_scipy(spv), lower=True,
-                                   with_grads=True)
+    params = (jnp.asarray(perturb(np.asarray(plan_true.offdiag_vals))),
+              jnp.asarray(perturb(np.asarray(plan_true.diag_vals))))
 
-    @jax.jit
-    def loss_and_grad(plan, v):
-        def loss(vv):
-            cols = [trisolve_waves_solve(plan, vv, jnp.asarray(B[:, j]))
-                    for j in range(k)]
-            X = jnp.stack(cols, axis=1)
-            return 0.5 * jnp.sum((X - X_obs) ** 2)
-
-        return jax.value_and_grad(loss)(v)
-
-    import optax
+    def loss(p):
+        plan = dataclasses.replace(plan_true, offdiag_vals=p[0],
+                                   diag_vals=p[1])
+        return 0.5 * jnp.sum((solve_all(plan, B) - X_obs) ** 2)
 
     opt = optax.adam(0.03)
-    state = opt.init(vals)
+    state = opt.init(params)
+
+    @jax.jit
+    def step(p, s):
+        L, g = jax.value_and_grad(loss)(p)
+        upd, s = opt.update(g, s)
+        return L, optax.apply_updates(p, upd), s
+
     L0 = None
-    for step in range(150):
-        plan = refit_plan(vals)  # host re-plan: values moved
-        L, g = loss_and_grad(plan, vals)
+    for i in range(150):
+        L, params, state = step(params, state)
         if L0 is None:
             L0 = float(L)
-        upd, state = opt.update(g, state)
-        vals = optax.apply_updates(vals, upd)
-        if step % 30 == 0 or step == 149:
-            print(f"step {step:3d}  loss {float(L):.6f}")
+        if i % 30 == 0 or i == 149:
+            print(f"step {i:3d}  loss {float(L):.6f}")
 
-    err = float(np.linalg.norm(np.asarray(vals)[: sp0.nnz] - sp0.data)
-                / np.linalg.norm(sp0.data))
-    print(f"relative value error vs ground truth: {err:.4f}")
+    truth = np.asarray(plan_true.offdiag_vals)
+    err = float(np.linalg.norm(np.asarray(params[0]) - truth)
+                / np.linalg.norm(truth))
+    print(f"relative off-diagonal error vs ground truth: {err:.4f}")
     # k·n observations vs nnz unknowns leaves the problem ill-conditioned;
     # success = the descent direction through the solve is right (loss
     # collapses by >100x), not a perfect recovery

@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from sparsematrix_tpu.formats import CSR
-from sparsematrix_tpu.ops import ilu0_fused_plans, ilu_apply
+from sparsematrix_tpu.ops import ilu0_plans, ilu_apply
 from sparsematrix_tpu.solvers import cg
 
 
@@ -40,8 +40,8 @@ def main():
     b = jnp.asarray(rng.uniform(-1, 1, nx * nx).astype(np.float32))
 
     plain = cg(A, b, tol=1e-8, maxiter=2000)
-    # fused plans: each triangular solve is ONE pallas call on TPU
-    plans = ilu0_fused_plans(A)
+    # level-scheduled plans: each triangular solve is one scan over levels
+    plans = ilu0_plans(A)
     pre = cg(A, b, tol=1e-8, maxiter=2000,
              M=functools.partial(ilu_apply, plans))
     res = np.linalg.norm(a @ np.asarray(pre.x) - np.asarray(b))

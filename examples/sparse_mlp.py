@@ -1,11 +1,11 @@
 """Codebook-quantized sparse MLP inference — the reference's production
 use case (mobile speech/NN inference over cluster-quantized sparse weight
-matrices) rebuilt TPU-native.
+matrices) rebuilt on JAX.
 
 Each layer's weight W (out×in) is stored transposed as CodebookDense
 (uint8 indices into a ≤255-entry table, 4× smaller than fp32); the forward
-pass is ``add_mat_mat`` per layer — on TPU the fused Pallas
-dequant+GEMM kernel.
+pass is ``add_mat_mat`` per layer — a table-gather dequant fused by XLA
+into one dense product.
 
 Run: python examples/sparse_mlp.py
 """

@@ -1,12 +1,14 @@
-"""Training through the sparse kernels — gradient descent on the stored
-values of a fixed sparsity pattern (static-sparsity training), exercising
-the custom VJPs on the Pallas fast paths.
+"""Training through the sparse ops — gradient descent on the stored
+values of a fixed sparsity pattern (static-sparsity training).
 
-The reference is inference-only; autodiff through every kernel is a
-capability a JAX-native framework owes its users.
+``CSR.data`` is a pytree leaf, so ``jax.grad`` of a loss through ``spmv``
+gives the gradient of every stored value while the pattern stays fixed.
+The reference is inference-only; autodiff through every op is a
+capability a JAX-native library owes its users.
 
 Run: python examples/sparse_training.py
 """
+import dataclasses
 import pathlib
 import sys
 
@@ -17,10 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from sparsematrix_tpu.formats import CSR
-from sparsematrix_tpu.kernels.spmv_rowlane import (
-    pack_sell_rowlane,
-    spmv_sell_rowlane,
-)
+from sparsematrix_tpu.ops import spmv
 
 
 def main():
@@ -29,36 +28,32 @@ def main():
     # fixed random sparsity pattern, learnable values
     dense = (rng.random((n, m)) < 0.05).astype(np.float32)
     dense *= rng.standard_normal((n, m)).astype(np.float32)
-    packed = pack_sell_rowlane(CSR.fromdense(dense), with_transpose=True)
+    A0 = CSR.fromdense(dense)
 
     # regression target from a hidden dense teacher
     W_true = rng.standard_normal((n, m)).astype(np.float32) * 0.1
     x = rng.standard_normal(m).astype(np.float32)
     y = W_true @ x
 
-    @jax.jit
-    def loss_fn(p, x, y):
-        pred = spmv_sell_rowlane(p, x)
+    def loss_fn(data, x, y):
+        pred = spmv(dataclasses.replace(A0, data=data), x)
         return jnp.mean((pred - y) ** 2)
 
     @jax.jit
-    def step(p, x, y, lr):
-        loss, grads = jax.value_and_grad(loss_fn, allow_int=True)(p, x, y)
-        # only the value plane trains; the layout is static
-        import dataclasses
+    def step(data, x, y, lr):
+        loss, g = jax.value_and_grad(loss_fn)(data, x, y)
+        return loss, data - lr * g  # only the values train
 
-        return loss, dataclasses.replace(p, vals=p.vals - lr * grads.vals)
-
-    p = packed
+    data = A0.data
     xj, yj = jnp.asarray(x), jnp.asarray(y)
     for i in range(30):
-        loss, p = step(p, xj, yj, 1e-3)
+        loss, data = step(data, xj, yj, 1e-3)
         if i % 10 == 0:
             print(f"step {i:3d}  loss {float(loss):.4f}")
-    start = float(loss_fn(packed, xj, yj))
+    start = float(loss_fn(A0.data, xj, yj))
     print(f"final loss {float(loss):.4f} (started ~{start:.4f})")
     assert float(loss) < start
-    print("OK: gradients flow through the Pallas SpMV fast path")
+    print("OK: gradients flow through the CSR SpMV")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Triangle counting on an undirected graph — SpGEMM workload.
 
 Triangles(G) = trace(A³)/6 = Σ (A² ∘ A)/6 for an undirected adjacency A.
-The SpGEMM runs through the round-4 CSC-native pair program
-(``spgemm(..., output="csc")`` — no output permutation); the Hadamard
+The SpGEMM runs through the pair program with CSC output
+(``spgemm(..., output="csc")``, planned as Aᵀ @ Aᵀ); the Hadamard
 mask + reduction stay on-device.  For a symmetric A the CSC result IS
 A²'s CSR transpose, and trace-based counting is orientation-free, so the
 transposed structure costs nothing here.

@@ -1,6 +1,6 @@
-"""sparsematrix_tpu — a TPU-native sparse linear-algebra framework.
+"""sparsematrix_tpu — a sparse linear-algebra framework for JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of
+Built from scratch in JAX/XLA with the capabilities of
 NeverLEX/sparsematrix (codebook-quantized sparse GEMM) generalized to a full
 sparse stack: COO/CSR/BSR/ELL/BlockedELL/Codebook formats, SpMV, SpMM,
 SpGEMM, triangular solve, ILU(0), and multi-device distribution via

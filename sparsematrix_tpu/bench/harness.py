@@ -1,7 +1,7 @@
 """Benchmark harness with the reference CLI's ergonomics.
 
 Replicates the capability set of `blas_test`
-(/root/reference/src/test/blas_test.{h,cc}): named benchmark registry,
+(reference src/test/blas_test.{h,cc}): named benchmark registry,
 regex include/exclude filters (``-pattern`` = exclude, blas_test.h:31-42),
 ``begin:end`` doubling shape sweeps (StepList, blas_test.h:50-63),
 an oracle-check toggle, and a timing table (TimeStatis, blas_test.h:65-98)
@@ -96,11 +96,9 @@ class BenchRegistry:
             **kwargs) -> List[Row]:
         """``deadline`` (time.monotonic() stamp) stops cleanly BEFORE the
         next group starts — so an external ``timeout`` never kills the
-        process mid-group and the partial JSON still gets written (the
-        570 s relay budget is tight for ilu_cg_xl/spgemm groups)."""
-        import sys
+        process mid-group and the partial JSON still gets written.  A
+        group that raises ends the run."""
         import time
-        import traceback
 
         for name, fn in self._benches.items():
             if not filt.accept(name) or (skip and name in skip):
@@ -109,12 +107,7 @@ class BenchRegistry:
                 print(f"[budget] BENCH_BUDGET exhausted — skipping {name} "
                       "and the rest of this sweep", flush=True)
                 break
-            try:
-                rows = fn(**kwargs)
-            except Exception:
-                print(f"[bench] {name} FAILED:", file=sys.stderr)
-                traceback.print_exc()
-                continue
+            rows = fn(**kwargs)
             rows = rows if isinstance(rows, list) else [rows]
             kept = []
             for r in rows:

@@ -1,28 +1,27 @@
-"""Global configuration for sparsematrix_tpu.
+"""Platform rules for sparsematrix_tpu.
 
-Selects between Pallas (compiled) kernels and pure-jnp reference
-implementations, and whether Pallas runs in interpreter mode (needed on CPU
-backends, e.g. the 8-virtual-device CPU mesh used by the test suite).
+Every device path is plain ``jax.numpy``/``lax`` compiled by XLA, so the
+only decision keyed on the platform is which collective carries the
+variable-width halo of ``parallel.dist_spmv_halo_var``.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 
 
 def _default_backend() -> str:
-    # cheap probe without forcing full jax import side effects at module load
     import jax
 
     return jax.default_backend()
 
 
+# backends whose XLA lowers ``lax.ragged_all_to_all``; XLA:CPU has no
+# ragged-all-to-all kernel, so the CPU takes the padded ppermute exchange
+_RAGGED_A2A_BACKENDS = ("gpu",)
+
+
 @dataclass
 class Config:
-    # "auto": pallas on TPU, jnp elsewhere. "pallas"/"jnp" force a path.
-    kernel_impl: str = os.environ.get("SMTPU_KERNEL_IMPL", "auto")
-    # interpret pallas kernels (for CPU); "auto" → interpret iff not on TPU
-    pallas_interpret: str = os.environ.get("SMTPU_PALLAS_INTERPRET", "auto")
     _backend: str | None = field(default=None, repr=False)
 
     @property
@@ -31,21 +30,10 @@ class Config:
             self._backend = _default_backend()
         return self._backend
 
-    @property
-    def on_tpu(self) -> bool:
-        return self.backend == "tpu"
-
-    def use_pallas(self) -> bool:
-        if self.kernel_impl == "pallas":
-            return True
-        if self.kernel_impl == "jnp":
-            return False
-        return self.on_tpu
-
-    def interpret(self) -> bool:
-        if self.pallas_interpret == "auto":
-            return not self.on_tpu
-        return self.pallas_interpret in ("1", "true", "yes")
+    def ragged_halo(self) -> bool:
+        """Whether ``dist_spmv_halo_var`` exchanges halos with
+        ``ragged_all_to_all`` (True) or the padded ppermute (False)."""
+        return self.backend in _RAGGED_A2A_BACKENDS
 
 
 config = Config()

@@ -1,12 +1,12 @@
 """Pytree base class for sparse-format containers.
 
-Design notes (TPU-first):
+Design notes:
   * Every format is a pytree of *statically shaped* ``jnp`` arrays so it can
     flow through ``jit`` / ``shard_map`` / ``scan`` without retracing on nnz
     changes.  The number of stored entries is padded up to a static
     ``nnz capacity``; padding entries are constructed to be *harmless under
     accumulation* (zero value, in-range index).  This generalizes the
-    reference's sentinel-zero trick (/root/reference/src/sparse/sparse-matrix.cc:29-31,
+    reference's sentinel-zero trick (reference src/sparse/sparse-matrix.cc:29-31,
     where ``val_table[size] = 0`` makes filler entries contribute nothing).
   * Logical metadata (shape, nnz, block sizes, dtypes) lives in the pytree
     *aux data* so it stays Python-static under tracing.
@@ -79,7 +79,7 @@ class SparseFormat:
       * ``shape`` — logical (rows, cols)
       * ``nnz`` — logical number of stored entries (static int)
       * ``todense()`` — decode to a dense ``jnp`` array (the ``CopyTo``
-        analogue, /root/reference/src/sparse/sparse-matrix.cc:102-137)
+        analogue, reference src/sparse/sparse-matrix.cc:102-137)
     """
 
     _data_fields: ClassVar[Tuple[str, ...]]
@@ -114,7 +114,7 @@ class SparseFormat:
 
     # ------------------------------------------------------------------
     # Equality mirrors the reference's operator==
-    # (/root/reference/src/sparse/sparse-matrix.cc:198-207): same logical
+    # (reference src/sparse/sparse-matrix.cc:198-207): same logical
     # matrix, compared via densified values.
     # ------------------------------------------------------------------
     def allclose(self, other, rtol=0.0, atol=0.0) -> bool:

@@ -3,7 +3,7 @@
 Block-CSR with dense (bm × bn) blocks; SpMV/SpMM over BSR are dense
 block-matmuls indexed by block-CSR structure.  Padding block slots point at
 block-column 0 with zero values (harmless-accumulation padding, generalizing
-the reference sentinel trick, /root/reference/src/sparse/sparse-matrix.cc:29-31).
+the reference sentinel trick, reference src/sparse/sparse-matrix.cc:29-31).
 """
 from __future__ import annotations
 

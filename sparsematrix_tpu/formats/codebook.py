@@ -1,17 +1,17 @@
 """Codebook-quantized sparse format — parity with the reference's core format.
 
 The reference (`sblas::SparseMatrix<uint8, uint8, float, 0, 8>`,
-/root/reference/src/sparse/sparse-matrix.h:26, sparse-matrix.cc:315) stores a
+reference src/sparse/sparse-matrix.h:26, sparse-matrix.cc:315) stores a
 sparse weight matrix as a delta-encoded stream of (position-delta, codebook
 index) byte pairs over 256-column panels, with values drawn from a ≤255-entry
 float table plus an appended sentinel ``val_table[size] = 0`` used for filler
 entries (sparse-matrix.cc:29-31,46-51).
 
-TPU-native design here:
+Design here:
   * ``CodebookCSR`` — compute layout: CSR structure whose per-entry payload is
     a small integer index into ``val_table`` (sentinel slot appended).
     Padding entries point at the sentinel → contribute 0.  Dequantization is
-    a gather ``val_table[val_idx]`` (XLA-fused; or in-kernel for Pallas).
+    a gather ``val_table[val_idx]`` (XLA-fused).
     The delta-stream does not vectorize, so it is *not* the compute layout —
     it is preserved as a **wire codec** (``encode_stream``/``decode_stream``)
     for byte-compatible interchange with the reference encoding
@@ -142,7 +142,7 @@ class CodebookCSR(SparseFormat):
 # Wire codec: the reference's delta-encoded byte stream.
 # ---------------------------------------------------------------------------
 
-PANEL_COLS_SHIFT = 8  # SBLAS_BLOCK_COL_SHIFT (/root/reference/src/sparse/kernel.h:26)
+PANEL_COLS_SHIFT = 8  # SBLAS_BLOCK_COL_SHIFT (reference src/sparse/kernel.h:26)
 PANEL_COLS = 1 << PANEL_COLS_SHIFT
 DELTA_MAX = 255  # zero_pad_interval for uint8 PosIndex_t
 
@@ -344,7 +344,7 @@ def _decode_stream_numpy(stream: CodebookStream, trans: bool = False) -> np.ndar
 
 
 def stream_to_codebook_csr(stream: CodebookStream, capacity: int | None = None) -> CodebookCSR:
-    """Convert a wire stream into the TPU compute layout."""
+    """Convert a wire stream into the compute layout."""
     dense_idx = _stream_to_index_matrix(stream)
     return CodebookCSR.from_index_matrix(
         dense_idx, stream.val_table[:-1], capacity=capacity

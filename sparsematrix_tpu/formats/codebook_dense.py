@@ -2,11 +2,11 @@
 
 The reference's format is primarily a *quantization* format (≤255 distinct
 values, 2 bytes/entry stored); at its benchmark density (25%) the matrix is
-not very sparse — zeros are just one more codebook entry.  On TPU the
-fastest layout for that regime is a **dense** uint8 index matrix (1
-byte/element — still 4× smaller than fp32) whose dequantization
-``table[idx]`` is a vectorized small-table gather that XLA compiles
-natively, feeding the MXU directly — no scatter, no index streams.
+not very sparse — zeros are just one more codebook entry.  The layout for
+that regime is a **dense** uint8 index matrix (1 byte/element — still 4×
+smaller than fp32) whose dequantization ``table[idx]`` is a vectorized
+small-table gather that XLA compiles natively, feeding one dense product
+— no scatter, no index streams.
 
 ``CodebookCSR`` remains the layout for genuinely sparse matrices; the two
 cover the reference capability (sparse-matrix.h:26) across density regimes.

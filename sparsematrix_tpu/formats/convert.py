@@ -2,7 +2,7 @@
 
 All conversions are host-side build-time operations (the reference's
 encode-once / multiply-many design, ``CopyForm``
-/root/reference/src/sparse/sparse-matrix.cc:21-99).  They go through scipy
+reference src/sparse/sparse-matrix.cc:21-99).  They go through scipy
 or numpy and return statically-shaped device containers.
 """
 from __future__ import annotations

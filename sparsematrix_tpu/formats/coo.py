@@ -2,8 +2,8 @@
 
 Arrays are padded to a static ``capacity``; padding entries carry
 ``row = col = 0`` and ``data = 0`` so they are harmless under accumulation
-(the TPU generalization of the reference's sentinel-zero filler,
-/root/reference/src/sparse/sparse-matrix.cc:46-51).
+(the generalization of the reference's sentinel-zero filler,
+reference src/sparse/sparse-matrix.cc:46-51).
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """CSR (compressed sparse row) format.
 
 ``indptr`` has static length ``rows + 1``; ``indices``/``data`` are padded to a
-static capacity with in-range column 0 and value 0 (harmless padding — the TPU
+static capacity with in-range column 0 and value 0 (harmless padding — the
 generalization of the reference's sentinel-zero entries,
-/root/reference/src/sparse/sparse-matrix.cc:29-31).
+reference src/sparse/sparse-matrix.cc:29-31).
 
 ``row_ids`` (the expanded per-entry row index, used by segment-sum SpMV) is
 materialized lazily and cached on the host side via ``with_row_ids``.
@@ -149,8 +149,8 @@ class CSC:
     """CSC is represented as the CSR of the transpose.
 
     Kept as a thin namespace: ``CSC.fromdense(a)`` returns ``CSR`` of ``a.T``
-    tagged by the caller.  A dedicated class adds no TPU value because every
-    kernel consumes CSR/ELL layouts.
+    tagged by the caller.  A dedicated class adds nothing because every op
+    consumes CSR/ELL layouts.
     """
 
     @staticmethod

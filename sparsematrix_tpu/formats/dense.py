@@ -1,11 +1,10 @@
 """Dense container — the honest fast path for the densify regime.
 
-On TPU, above a few percent density the optimal "sparse" execution is a
-dense MXU contraction; `spmm(method="densify")` proves it but pays an XLA
-scatter (≈10 ns/element) on *every call* to materialize the matrix.
-``Dense`` stores the materialization once at build time (the
-encode-once/multiply-many stance again), so SpMV/SpMM are pure MXU ops
-with zero per-call overhead, while keeping the sparse-container interface
+Above a few percent density the optimal "sparse" execution is a dense
+contraction; `spmm(method="densify")` does it but pays an XLA scatter on
+*every call* to materialize the matrix.  ``Dense`` stores the
+materialization once at build time (the encode-once/multiply-many stance
+again), so SpMV/SpMM are pure dense products with no per-call scatter, while keeping the sparse-container interface
 (shape/nnz/todense/astype) so it composes with the rest of the framework.
 """
 from __future__ import annotations
@@ -31,9 +30,8 @@ class Dense(SparseFormat):
     @classmethod
     def fromdense(cls, dense, dtype=None):
         """``dtype=jnp.bfloat16`` stores the plane half-width: halves the
-        dominant HBM stream AND swaps the slow multi-pass fp32 MXU for the
-        native bf16 systolic path (measured 37.5 → ~12 µs at n=2048
-        k=128).  Accuracy ~1e-2 relative — inside the reference's 0.1
+        dominant memory stream and runs the product on the bf16 tensor
+        cores instead of true fp32.  Accuracy ~1e-2 relative — inside the reference's 0.1
         relative-error policy (blas_test.h:163-173)."""
         dense = np.asarray(dense)
         arr = jnp.asarray(dense)

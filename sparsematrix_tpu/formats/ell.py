@@ -1,15 +1,16 @@
-"""ELL and Blocked-ELL formats — the TPU compute layouts.
+"""ELL and Blocked-ELL formats — padded compute layouts.
 
 ``ELL``: every row padded to a fixed entry count ``R`` → dense (rows, R)
-index/value planes, fully vectorizable on the VPU.  Optionally row-sorted
+index/value planes, fully vectorizable.  Optionally row-sorted
 within windows (SELL-C-sigma style) via ``convert.csr_to_ell`` to reduce
 padding waste.
 
 ``BlockedELL``: the matrix is tiled into (bm × bk) dense blocks; each
 block-row stores a fixed number of nonzero blocks.  SpMM then becomes a sum
-of dense (bm × bk) @ (bk × n) matmuls indexed by ``block_cols`` — the MXU
-path.  This replaces the reference's per-nonzero AXPY hot loop
-(/root/reference/src/sparse/kernel.cc:771-800) with systolic-array matmuls.
+of dense (bm × bk) @ (bk × n) matmuls indexed by ``block_cols`` — a
+batched dense product.  This replaces the reference's per-nonzero AXPY
+hot loop (reference src/sparse/kernel.cc:771-800) with block
+matmuls.
 
 Padding entries reference column 0 with zero values, generalizing the
 reference's sentinel-zero filler (sparse-matrix.cc:29-31): padding

@@ -1,20 +1,20 @@
 """QuantDense — int8 per-row-quantized dense container for the densify
 regime.
 
-The densify regime's cost on TPU is HBM bytes for the materialized A plane
-plus MXU time; fp32 pays 4 B/elem and the slow multi-pass fp32 MXU.  The
-v5e int MXU runs int8×int8→int32 at ~2× bf16 rate, and 1 B/elem halves the
-bf16 plane again — the same trade the reference makes with its 255-entry
+The densify regime's cost is memory bytes for the materialized A plane
+plus matmul time; fp32 pays 4 B/elem and runs outside the tensor cores.
+An int8×int8→int32 product runs on the integer tensor-core path, and
+1 B/elem halves the bf16 plane again — the same trade the reference makes with its 255-entry
 codebook quantization (B stored as uint8 indices,
-/root/reference/src/test/blas_test.h:139-145), generalized to arbitrary
+reference src/test/blas_test.h:139-145), generalized to arbitrary
 values via per-row scales instead of a shared table.
 
 Accuracy: symmetric per-row quantization gives |ΔA|/|A| ≤ 1/254 per
 element; results pass the reference's 0.1 relative-error policy
 (blas_test.h:163-173) with ~2 orders of margin (measured ~4e-3).
 
-Multiply path: X is quantized per-COLUMN at call time (two cheap VPU
-passes), the contraction runs int8·int8→int32 on the MXU, and the result
+Multiply path: X is quantized per-COLUMN at call time (two cheap
+elementwise passes), the contraction runs int8·int8→int32, and the result
 is rescaled by the rank-1 outer product of the two scale vectors.
 """
 from __future__ import annotations

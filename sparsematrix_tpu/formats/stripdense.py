@@ -1,19 +1,17 @@
 """StripDense — locally-densified row strips for band-local matrices.
 
-The TPU answer to DIA/banded storage (and to "stack more block-rows per
-grid step", the round-1 review's MXU-utilization ask): instead of teaching
-a Pallas kernel to batch (8, 128) blocks, exploit that a band-local matrix
-restricted to a 128-row strip touches only a narrow, contiguous column
-window — so each strip can be stored DENSE at that window, and
-SpMV/SpMM become one batched (n_strips, 128, width) × (n_strips, width, k)
-matmul that XLA maps straight onto the MXU at full 128-row occupancy.
+An answer to DIA/banded storage: a band-local matrix restricted to a
+128-row strip touches only a narrow, contiguous column window — so each
+strip can be stored DENSE at that window, and SpMV/SpMM become one
+batched (n_strips, 128, width) × (n_strips, width, k) matmul that XLA
+hands to the batched dense-product path.
 Padding inside a strip is explicit zeros (harmless under accumulation,
-the sentinel-zero stance of /root/reference/src/sparse/sparse-matrix.cc:29-31);
+the sentinel-zero stance of reference src/sparse/sparse-matrix.cc:29-31);
 the only sparse machinery left is one row-gather of the RHS per strip.
 
 Applicability is checked at build time: ``from_csr`` fails loudly when
 some strip's column span exceeds ``max_width`` (the matrix is not
-band-local; use CSR/row-lane or BlockedELL instead).  Bandwidth-reducing
+band-local; use CSR or BlockedELL instead).  Bandwidth-reducing
 reorderings (``utils.reorder.rcm``) widen the format's reach.
 """
 from __future__ import annotations
@@ -60,7 +58,11 @@ class StripDense(SparseFormat):
         more raises — StripDense is for band-local structure only.
         """
         sp = A.to_scipy().tocsr()
-        sp.sum_duplicates()
+        if not sp.has_canonical_format:
+            # merge duplicates on a copy: to_scipy() may return the
+            # container's cached host matrix, which must stay as stored
+            sp = sp.copy()
+            sp.sum_duplicates()
         rows, cols = sp.shape
         n_strips = max(-(-rows // rows_per_strip), 1)
         cap = min(cols, 8192) if max_width is None else int(max_width)

@@ -22,8 +22,7 @@ _tried = False
 
 
 def _build() -> bool:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-           "-pthread", _SRC, "-o", _SO]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _SO]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         return True
@@ -80,36 +79,6 @@ def get_lib():
         lib.smtpu_index_matrix_to_csr.argtypes = [
             c_i32p, c_long, c_long, ctypes.c_int32,
             c_i64p, c_i32p, c_i32p, c_long,
-        ]
-        c_i8p = ctypes.POINTER(ctypes.c_int8)
-        lib.smtpu_rowlane_plan.restype = c_long
-        lib.smtpu_rowlane_plan.argtypes = [
-            c_i32p, c_i32p, c_long, c_long, c_long,
-            ctypes.c_int32, ctypes.c_int32, c_i64p,
-        ]
-        lib.smtpu_rowlane_fill.restype = c_long
-        lib.smtpu_rowlane_fill.argtypes = [
-            c_i32p, c_i32p, c_u8p, c_long,
-            c_i8p, c_u8p, c_i32p, c_i32p, c_u8p,
-        ]
-        lib.smtpu_rowlane_spill_mask.restype = c_long
-        lib.smtpu_rowlane_spill_mask.argtypes = [
-            c_i32p, c_i32p, c_long, c_long, c_long,
-            ctypes.c_int32, ctypes.c_int32, c_u8p,
-        ]
-        lib.smtpu_color_ranks.restype = c_long
-        lib.smtpu_color_ranks.argtypes = [
-            c_i32p, c_i32p, c_long, c_long, c_long, c_i64p,
-        ]
-        lib.smtpu_assign_dualgather.restype = c_long
-        lib.smtpu_assign_dualgather.argtypes = [
-            c_i64p, c_i32p, c_i32p, c_i32p, c_long, c_long,
-            c_i32p, c_i8p,
-        ]
-        lib.smtpu_assign_octet.restype = c_long
-        lib.smtpu_assign_octet.argtypes = [
-            c_i64p, c_i32p, c_i32p, c_i32p, c_i32p, c_long, c_long,
-            c_i32p, c_i8p,
         ]
         _lib = lib
         return _lib

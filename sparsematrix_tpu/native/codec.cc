@@ -1,8 +1,8 @@
 // Native host codec for the codebook wire format and CSR assembly.
 //
 // The reference implements its encode/decode in C++ (CopyForm/CopyTo,
-// /root/reference/src/sparse/sparse-matrix.cc:21-137); this is the
-// TPU-framework analogue: the *device* math lives in Pallas/XLA, but the
+// reference src/sparse/sparse-matrix.cc:21-137); this is the
+// framework's analogue: the *device* math lives in XLA, but the
 // host-side stream codec — a sequential, branchy byte-stream transform that
 // vectorizes poorly in numpy — is native C++ exposed via a C ABI (ctypes).
 //
@@ -105,7 +105,7 @@ long smtpu_decode_stream(const uint8_t* pos, const uint8_t* val, long n,
 }
 
 // Decode the stream directly into COO triplets (row, col, val_idx) —
-// feeding the TPU compute layout without a dense intermediate.
+// feeding the compute layout without a dense intermediate.
 // Returns nnz, or -1 if cap too small.
 long smtpu_decode_stream_coo(const uint8_t* pos, const uint8_t* val, long n,
                              int32_t table_size,
@@ -232,783 +232,6 @@ long smtpu_ic0(const int64_t* indptr, const int32_t* indices, double* a,
         if (d <= 0.0) return -(n + 1 + i);
         a[s] = std::sqrt(d);
       }
-    }
-  }
-  return 0;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Row-lane SELL packer (kernels/spmv_rowlane.py: _pack_arrays).
-//
-// The numpy packer is algorithmically vectorized but allocates ~20 large
-// temporaries; on hosts with expensive first-touch faults (lazy VM memory
-// backing) that dominates pack time at the 10^7-nnz scale.  This native
-// version sorts once, walks twice, and keeps its scratch in persistent
-// buffers (never shrunk), so fault cost is paid once per process.
-//
-// Two-phase C ABI (output sizes are data-dependent):
-//   smtpu_rowlane_plan(...)  -> total_slots / n_groups / group chosen
-//   smtpu_rowlane_fill(...)  -> scatter into caller-allocated arrays
-// State persists between the two calls (single-threaded use; the Python
-// wrapper holds a lock).
-// ---------------------------------------------------------------------------
-
-namespace rowlane {
-constexpr long kW = 1024;   // window columns
-constexpr long kLanes = 128;
-
-struct State {
-  std::vector<uint64_t> skey;     // (key << idx_bits) | idx when packable
-  std::vector<int64_t> key;       // fallback: plain keys
-  std::vector<int64_t> order;     // fallback: sorted permutation
-  std::vector<int32_t> slabcnt;   // per (t, w): ceil(max bucket / L)
-  std::vector<int64_t> slab_start;  // per (t, w): start rank within tile
-  std::vector<int64_t> tile_offset; // per tile: first padded slab slot
-  std::vector<int32_t> tile_groups;
-  std::vector<int64_t> counts;    // per tile: real slab count
-  long n_tiles = 0, n_win = 0, total_slots = 0, n_groups = 0, nnz = 0;
-  long rows = 0, cols = 0;
-  int32_t group = 0, L = 1, T = kLanes;
-  bool packed_sort = false;
-};
-State g;
-
-inline int64_t entry_key(int32_t r, int32_t c, long n_win, long T) {
-  const long t = r / T, rloc = r % T;
-  const long w = c / kW, u = (c % kW) / kLanes;
-  return ((t * n_win + w) * 8 + u) * T + rloc;
-}
-}  // namespace rowlane
-
-extern "C" {
-
-// Phase 1: sort + size.  group_req == 0 selects automatically (largest of
-// 64/32/16/8/4/2 whose per-tile padding waste stays under 15%, else 1 —
-// mirrors the numpy packer).  Outputs: meta[0]=total_slots, meta[1]=n_groups,
-// meta[2]=group, meta[3]=n_tiles, meta[4]=n_win, meta[5]=n_slabs.
-long smtpu_rowlane_plan(const int32_t* r, const int32_t* c, long nnz,
-                        long rows, long cols, int32_t group_req, int32_t L,
-                        int64_t* meta) {
-  using namespace rowlane;
-  if (nnz <= 0 || L <= 0 || kLanes % L) return -1;
-  State& s = g;
-  s.L = L;
-  s.T = kLanes / L;
-  s.nnz = nnz;
-  s.rows = rows;
-  s.cols = cols;
-  s.n_tiles = (rows + s.T - 1) / s.T;
-  s.n_win = std::max((cols + kW - 1) / kW, 1L);
-  const long T = s.T, n_win = s.n_win;
-
-  // sort entries by bucket key; pack (key, idx) into one uint64 when both
-  // fit (stability comes free from the idx low bits)
-  const int idx_bits = 64 - __builtin_clzll((unsigned long long)nnz);
-  const int64_t max_key = ((s.n_tiles * n_win) * 8 + 7) * T + (T - 1);
-  const int key_bits = 64 - __builtin_clzll((unsigned long long)max_key + 1);
-  s.packed_sort = key_bits + idx_bits <= 64;
-  if (s.packed_sort) {
-    s.skey.resize(nnz);
-    for (long i = 0; i < nnz; ++i)
-      s.skey[i] = ((uint64_t)entry_key(r[i], c[i], n_win, T) << idx_bits) |
-                  (uint64_t)i;
-    std::sort(s.skey.begin(), s.skey.begin() + nnz);
-  } else {
-    s.key.resize(nnz);
-    s.order.resize(nnz);
-    for (long i = 0; i < nnz; ++i) {
-      s.key[i] = entry_key(r[i], c[i], n_win, T);
-      s.order[i] = i;
-    }
-    std::stable_sort(s.order.begin(), s.order.begin() + nnz,
-                     [&](int64_t a, int64_t b) { return s.key[a] < s.key[b]; });
-  }
-  const int ib = idx_bits;
-  auto sorted_key = [&](long i) -> int64_t {
-    return s.packed_sort ? (int64_t)(s.skey[i] >> ib) : s.key[s.order[i]];
-  };
-
-  // pass 1: per-(t, w) slab count = ceil(max bucket depth / L)
-  s.slabcnt.assign(s.n_tiles * n_win, 0);
-  for (long i = 0; i < nnz;) {
-    long j = i + 1;
-    const int64_t k0 = sorted_key(i);
-    while (j < nnz && sorted_key(j) == k0) ++j;
-    const long tw = k0 / (8 * T);
-    const int32_t cnt = (int32_t)((j - i + L - 1) / L);
-    if (cnt > s.slabcnt[tw]) s.slabcnt[tw] = cnt;
-    i = j;
-  }
-
-  // per-tile totals, in-tile slab ranks, group selection, padded offsets
-  s.counts.assign(s.n_tiles, 0);
-  s.slab_start.resize(s.n_tiles * n_win);
-  long n_slabs = 0;
-  for (long t = 0; t < s.n_tiles; ++t) {
-    long acc = 0;
-    for (long w = 0; w < n_win; ++w) {
-      s.slab_start[t * n_win + w] = acc;
-      acc += s.slabcnt[t * n_win + w];
-    }
-    s.counts[t] = acc;
-    n_slabs += acc;
-  }
-  int32_t group = group_req;
-  if (group <= 0) {
-    group = 1;
-    for (int32_t cand : {256, 128, 64, 32, 16, 8, 4, 2}) {
-      long padded = 0;
-      for (long t = 0; t < s.n_tiles; ++t)
-        padded += (s.counts[t] + cand - 1) / cand * cand;
-      if (n_slabs > 0 &&
-          (double)(padded - n_slabs) / (double)n_slabs <= 0.15) {
-        group = cand;
-        break;
-      }
-    }
-  }
-  s.group = group;
-  s.tile_groups.resize(s.n_tiles);
-  s.tile_offset.assign(s.n_tiles + 1, 0);
-  for (long t = 0; t < s.n_tiles; ++t) {
-    s.tile_groups[t] = (int32_t)((s.counts[t] + group - 1) / group);
-    s.tile_offset[t + 1] =
-        s.tile_offset[t] + (int64_t)s.tile_groups[t] * group;
-  }
-  s.total_slots = s.tile_offset[s.n_tiles];
-  s.n_groups = s.total_slots / group;
-  meta[0] = s.total_slots;
-  meta[1] = s.n_groups;
-  meta[2] = group;
-  meta[3] = s.n_tiles;
-  meta[4] = s.n_win;
-  meta[5] = n_slabs;
-  return 0;
-}
-
-// Spill mask: keep[i] = occurrence-of-entry-i-within-its-bucket < depth.
-// Same sort as the plan (separate state; callable before plan).
-long smtpu_rowlane_spill_mask(const int32_t* r, const int32_t* c, long nnz,
-                              long rows, long cols, int32_t L,
-                              int32_t depth, uint8_t* keep) {
-  using namespace rowlane;
-  if (nnz <= 0 || L <= 0 || kLanes % L) return -1;
-  const long T = kLanes / L;
-  const long n_win = std::max((cols + kW - 1) / kW, 1L);
-  const int idx_bits = 64 - __builtin_clzll((unsigned long long)nnz);
-  const long n_tiles = (rows + T - 1) / T;
-  const int64_t max_key = ((n_tiles * n_win) * 8 + 7) * T + (T - 1);
-  const int key_bits = 64 - __builtin_clzll((unsigned long long)max_key + 1);
-  if (key_bits + idx_bits <= 64) {
-    std::vector<uint64_t> sk(nnz);
-    for (long i = 0; i < nnz; ++i)
-      sk[i] = ((uint64_t)entry_key(r[i], c[i], n_win, T) << idx_bits) |
-              (uint64_t)i;
-    std::sort(sk.begin(), sk.end());
-    const uint64_t mask = (((uint64_t)1) << idx_bits) - 1;
-    for (long i = 0; i < nnz;) {
-      long j = i + 1;
-      while (j < nnz && (sk[j] >> idx_bits) == (sk[i] >> idx_bits)) ++j;
-      for (long q = i; q < j; ++q)
-        keep[sk[q] & mask] = (q - i) < (long)depth;
-      i = j;
-    }
-  } else {
-    std::vector<int64_t> key(nnz), order(nnz);
-    for (long i = 0; i < nnz; ++i) {
-      key[i] = entry_key(r[i], c[i], n_win, T);
-      order[i] = i;
-    }
-    std::stable_sort(order.begin(), order.end(),
-                     [&](int64_t a, int64_t b) { return key[a] < key[b]; });
-    for (long i = 0; i < nnz;) {
-      long j = i + 1;
-      while (j < nnz && key[order[j]] == key[order[i]]) ++j;
-      for (long q = i; q < j; ++q) keep[order[q]] = (q - i) < (long)depth;
-      i = j;
-    }
-  }
-  return 0;
-}
-
-// Phase 2: scatter into caller-allocated (and zero-filled) outputs.
-//   s_idx: int8 [total_slots * 8 * 128]; vals: esize bytes per slot;
-//   win: int32 [total_slots]; group_tile: int32 [n_groups];
-//   tile_nonempty: uint8 [n_tiles].  v is the entry values (esize bytes
-//   each, any dtype — copied opaquely).
-long smtpu_rowlane_fill(const int32_t* r, const int32_t* c, const uint8_t* v,
-                        long esize, int8_t* s_idx, uint8_t* vals,
-                        int32_t* win, int32_t* group_tile,
-                        uint8_t* tile_nonempty) {
-  using namespace rowlane;
-  State& s = g;
-  if (s.nnz <= 0) return -1;
-  const long T = s.T, n_win = s.n_win, nnz = s.nnz;
-  const int idx_bits = 64 - __builtin_clzll((unsigned long long)nnz);
-  auto sorted_pair = [&](long i, int64_t* k, long* e) {
-    if (s.packed_sort) {
-      *k = (int64_t)(s.skey[i] >> idx_bits);
-      *e = (long)(s.skey[i] & (((uint64_t)1 << idx_bits) - 1));
-    } else {
-      *e = s.order[i];
-      *k = s.key[*e];
-    }
-  };
-  for (long i = 0; i < nnz;) {
-    int64_t k0;
-    long e0;
-    sorted_pair(i, &k0, &e0);
-    long j = i;
-    // walk the bucket: occurrence d = j - i
-    const long tw = k0 / (8 * T);
-    const long t = tw / n_win;
-    const int64_t base = s.tile_offset[t] + s.slab_start[tw];
-    for (;;) {
-      int64_t kj;
-      long ej;
-      if (j < nnz) sorted_pair(j, &kj, &ej);
-      if (j >= nnz || kj != k0) break;
-      const long d = j - i;
-      const int32_t rr = r[ej], cc = c[ej];
-      const long u = (cc % kW) / kLanes;
-      const long lane = (rr % T) + (d % s.L) * T;
-      const int64_t slot = base + d / s.L;
-      const int64_t off = slot * 8 * kLanes + u * kLanes + lane;
-      s_idx[off] = (int8_t)(cc % kLanes);
-      std::memcpy(vals + off * esize, v + (long)ej * esize, esize);
-      ++j;
-    }
-    i = j;
-  }
-  // window ids for every real slab; padded slots stay 0 (harmless: their
-  // values are zero)
-  for (long t = 0; t < s.n_tiles; ++t) {
-    tile_nonempty[t] = s.counts[t] > 0;
-    for (long w = 0; w < n_win; ++w) {
-      const int64_t b = s.tile_offset[t] + s.slab_start[t * n_win + w];
-      for (int32_t q = 0; q < s.slabcnt[t * n_win + w]; ++q)
-        win[b + q] = (int32_t)w;
-    }
-  }
-  long gidx = 0;
-  for (long t = 0; t < s.n_tiles; ++t)
-    for (int32_t q = 0; q < s.tile_groups[t]; ++q) group_tile[gidx++] = t;
-  return 0;
-}
-
-}  // extern "C"\n
-// ---------------------------------------------------------------------------
-// Sublane coloring for packed-SpGEMM pair programs
-// (ops/spgemm.py::_color_b_ranks — bit-identical greedy).
-//
-// Each B-entry rank inside its 1024-rank window gets a (sublane, slot) so
-// that every output slot's references land on distinct sublanes: greedy
-// over ranks in order; a rank's forbidden set is the OR of the colors
-// already used by the rows (output slots) referencing it within the
-// current window; pick the least-loaded non-full color, +100000 penalty
-// when forbidden; ties break to the lowest color index.
-// ---------------------------------------------------------------------------
-
-extern "C" {
-
-// pair arrays: q[i] = B-entry rank of pair i, row[i] = P-row of pair i.
-// alloc (out, n_ranks int64): window-absolute position per rank.
-long smtpu_color_ranks(const int32_t* q, const int32_t* row, long n_pairs,
-                       long n_ranks, long n_rows, int64_t* alloc) {
-  if (n_ranks <= 0) return 0;
-  // counting-sort pairs by rank (stable) -> per-rank row lists
-  std::vector<int64_t> start(n_ranks + 1, 0);
-  for (long i = 0; i < n_pairs; ++i) ++start[(int64_t)q[i] + 1];
-  for (long k = 0; k < n_ranks; ++k) start[k + 1] += start[k];
-  std::vector<int32_t> rows_s(n_pairs);
-  {
-    std::vector<int64_t> cur(start.begin(), start.end() - 1);
-    for (long i = 0; i < n_pairs; ++i) rows_s[cur[q[i]]++] = row[i];
-  }
-  std::vector<uint16_t> used(n_rows, 0);
-  std::vector<int64_t> stamp(n_rows, -1);
-  int64_t capc[8];
-  int64_t cur_w = -1;
-  for (long qq = 0; qq < n_ranks; ++qq) {
-    const int64_t w = qq >> 10;
-    if (w != cur_w) {
-      cur_w = w;
-      for (int c = 0; c < 8; ++c) capc[c] = 0;
-    }
-    unsigned forbid = 0;
-    for (int64_t j = start[qq]; j < start[qq + 1]; ++j) {
-      const int32_t rr = rows_s[j];
-      if (stamp[rr] != w) { used[rr] = 0; stamp[rr] = w; }
-      forbid |= used[rr];
-    }
-    int best = 0;
-    int64_t bestload = (int64_t)1 << 30;
-    for (int c = 0; c < 8; ++c) {
-      if (capc[c] >= 128) continue;
-      const int64_t load = capc[c] + (((forbid >> c) & 1u) ? 100000 : 0);
-      if (load < bestload) { best = c; bestload = load; }
-    }
-    alloc[qq] = (qq >> 10 << 10) + (int64_t)best * 128 + capc[best];
-    ++capc[best];
-    const uint16_t bit = (uint16_t)(1u << best);
-    for (int64_t j = start[qq]; j < start[qq + 1]; ++j) used[rows_s[j]] |= bit;
-  }
-  return 0;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Dual-gather slot assignment (kernels/spmv_dualgather.py::_assign_slots).
-//
-// Sequential first-fit replacing the vectorized parallel-repair packer:
-// per (tile, window) cell, each entry probes (s, u) from s=0 upward (u
-// starting at (l+cl)&7) for the first slot satisfying
-//   C1: one entry per (s, u, row-lane l), and
-//   C2: the (s, u, cl) chunk cell is empty or already carries this chunk.
-// First-fit lands at or below the parallel repair's level (measured
-// ~100x faster at the 16.6M-nnz XL pack, with equal-or-better fill).
-// Supports the two-window layout via caller-provided ch in 0..15.
-// ---------------------------------------------------------------------------
-
-#include <cstring>
-
-extern "C" {
-
-// cell[i] in [0, n_cells); l/cl in 0..127; ch in 0..15.
-// out_s int32, out_u int8.  Returns max slab depth (>=0) or -1 on error.
-long smtpu_assign_dualgather(const int64_t* cell, const int32_t* l,
-                             const int32_t* cl, const int32_t* ch,
-                             long n, long n_cells,
-                             int32_t* out_s, int8_t* out_u) {
-  if (n <= 0) return 0;
-  if (n_cells <= 0) return -1;
-  // counting-sort entry ids by cell (stable)
-  std::vector<int64_t> start(n_cells + 1, 0);
-  for (long i = 0; i < n; ++i) {
-    if (cell[i] < 0 || cell[i] >= n_cells) return -1;
-    ++start[cell[i] + 1];
-  }
-  for (long k = 0; k < n_cells; ++k) start[k + 1] += start[k];
-  std::vector<int64_t> order(n);
-  {
-    std::vector<int64_t> cur(start.begin(), start.end() - 1);
-    for (long i = 0; i < n; ++i) order[cur[cell[i]]++] = i;
-  }
-  // per-level occupancy, reused across cells (cleared per cell up to the
-  // depth the cell actually used)
-  struct Level {
-    uint64_t rows[8][2];   // 128-bit row-lane bitset per sublane
-    int8_t chv[8][128];    // chunk per (sublane, cl); -1 = empty
-  };
-  std::vector<Level> lv;
-  long global_max_s = 0;
-  for (long c = 0; c < n_cells; ++c) {
-    const int64_t b0 = start[c], b1 = start[c + 1];
-    if (b0 == b1) continue;
-    long used_s = 0;
-    for (int64_t j = b0; j < b1; ++j) {
-      const long e = order[j];
-      const int li = l[e], cli = cl[e];
-      const int8_t chi = (int8_t)ch[e];
-      const int tries0 = (li + cli) & 7;
-      long s = 0;
-      int placed_u = -1;
-      for (;; ++s) {
-        if ((long)lv.size() <= s) {
-          lv.emplace_back();
-          std::memset(&lv[s], -1, sizeof(Level));
-          std::memset(lv[s].rows, 0, sizeof(lv[s].rows));
-        } else if (s >= used_s) {
-          std::memset(&lv[s], -1, sizeof(Level));
-          std::memset(lv[s].rows, 0, sizeof(lv[s].rows));
-        }
-        if (s >= used_s) used_s = s + 1;
-        Level& L = lv[s];
-        for (int t = 0; t < 8; ++t) {
-          const int u = (tries0 + t) & 7;
-          const int word = li >> 6, bit = li & 63;
-          if ((L.rows[u][word] >> bit) & 1ull) continue;
-          const int8_t cv = L.chv[u][cli];
-          if (cv != -1 && cv != chi) continue;
-          L.rows[u][word] |= 1ull << bit;
-          L.chv[u][cli] = chi;
-          placed_u = u;
-          break;
-        }
-        if (placed_u >= 0) break;
-      }
-      out_s[e] = (int32_t)s;
-      out_u[e] = (int8_t)placed_u;
-      if (s > global_max_s) global_max_s = s;
-    }
-  }
-  return global_max_s;
-}
-
-// Octet-layout slot assignment (kernels/spmv_octet.py): entries grouped
-// by ow = octet*n_win + window; per entry (u 0..7, lane 0..127,
-// chunk 0..7, pos 0..127) pick depth d and middle slot m such that
-//  * the (d, u, lane) cell is unique            (row degree rule)
-//  * m is unique within (d, u)                  (route plane)
-//  * the (d, chunk, m) pos cell agrees on pos   (pos plane)
-// Sequential first-fit (depth-then-slot, slot scan seeded at the lane)
-// -- one pass vs the numpy parallel repair's ~15 rounds of full-array
-// sorts.  Returns max depth or -1 on error.
-long smtpu_assign_octet(const int64_t* ow, const int32_t* u,
-                        const int32_t* lane, const int32_t* chunk,
-                        const int32_t* pos, long n, long n_ow,
-                        int32_t* out_d, int8_t* out_m) {
-  if (n <= 0) return 0;
-  if (n_ow <= 0) return -1;
-  std::vector<int64_t> start(n_ow + 1, 0);
-  for (long i = 0; i < n; ++i) {
-    if (ow[i] < 0 || ow[i] >= n_ow) return -1;
-    ++start[ow[i] + 1];
-  }
-  for (long k = 0; k < n_ow; ++k) start[k + 1] += start[k];
-  std::vector<int64_t> order(n);
-  {
-    std::vector<int64_t> cur(start.begin(), start.end() - 1);
-    for (long i = 0; i < n; ++i) order[cur[ow[i]]++] = i;
-  }
-  struct Level {
-    uint64_t cellL[8][2];   // (u, lane) occupancy
-    uint64_t slotU[8][2];   // (u, m) occupancy
-    int16_t posT[8][128];   // pos+1 per (chunk, m); 0 = empty
-  };
-  std::vector<Level> lv;
-  long global_max_d = 0;
-  for (long g = 0; g < n_ow; ++g) {
-    const int64_t b0 = start[g], b1 = start[g + 1];
-    if (b0 == b1) continue;
-    long used_d = 0;
-    for (int64_t j = b0; j < b1; ++j) {
-      const long e = order[j];
-      const int ui = u[e], li = lane[e], ci = chunk[e], pi = pos[e];
-      long d = 0;
-      int placed_m = -1;
-      for (;; ++d) {
-        if ((long)lv.size() <= d) lv.emplace_back();
-        if (d >= used_d) {
-          std::memset(&lv[d], 0, sizeof(Level));
-          used_d = d + 1;
-        }
-        Level& L = lv[d];
-        const int lw = li >> 6, lb = li & 63;
-        if ((L.cellL[ui][lw] >> lb) & 1ull) continue;  // cell taken
-        for (int t = 0; t < 128; ++t) {
-          const int m = (li + t) & 127;
-          const int mw = m >> 6, mb = m & 63;
-          if ((L.slotU[ui][mw] >> mb) & 1ull) continue;
-          const int16_t pv = L.posT[ci][m];
-          if (pv != 0 && pv != (int16_t)(pi + 1)) continue;
-          L.cellL[ui][lw] |= 1ull << lb;
-          L.slotU[ui][mw] |= 1ull << mb;
-          L.posT[ci][m] = (int16_t)(pi + 1);
-          placed_m = m;
-          break;
-        }
-        if (placed_m >= 0) break;
-      }
-      out_d[e] = (int32_t)d;
-      out_m[e] = (int8_t)placed_m;
-      if (d > global_max_d) global_max_d = d;
-    }
-  }
-  return global_max_d;
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// Euler-split edge coloring for the Clos-routed planned permutation
-// (ops/permute_clos.py).
-//
-// A REGULAR bipartite multigraph with all degrees == n_colors (a power
-// of two) is n_colors-edge-colorable (König); the Euler-split
-// construction halves the graph log2(n_colors) times: all degrees are
-// even at every level, so each connected edge subset decomposes into
-// closed walks, and taking alternate edges of each walk splits every
-// vertex's degree exactly in half.  Each level is O(E); total
-// O(E log n_colors).
-//
-// Used twice by the permutation planner: (1) the grid-level routing —
-// left = source row, right = destination row, n_colors = 1024 — whose
-// color is the intermediate column of the row-local/column-local/
-// row-local (Clos) decomposition; (2) the window-level middle-slot
-// assignment — left = dest sublane u, right = source sublane c,
-// n_colors = 128 — giving the POS/CH/RT planes of the 3-gather kernel
-// (kernels/permute_pallas.py), same addressing as the octet SpMV
-// (kernels/spmv_octet.py).  No reference analogue: the reference
-// permutes on the host (sparse-matrix.cc CopyTo scatter); on TPU the
-// planned device permutation is the engineered capability.
-// ---------------------------------------------------------------------------
-
-#include <thread>
-
-extern "C" {
-
-// left[e] in [0, n_left), right[e] in [0, n_right); every left vertex
-// must have degree exactly n_colors and every right vertex likewise
-// (n_edges == n_left*n_colors == n_right*n_colors); n_colors a power of
-// two.  Writes color[e] in [0, n_colors).  Returns 0, or -1 on invalid
-// input (non-regular / not a power of two).
-long smtpu_edge_color(const int32_t* left, const int32_t* right,
-                      long n_edges, long n_left, long n_right,
-                      long n_colors, int32_t* color) {
-  if (n_colors <= 0 || (n_colors & (n_colors - 1)) != 0) return -1;
-  if (n_edges != n_left * n_colors || n_edges != n_right * n_colors)
-    return -1;
-  const long n_vert = n_left + n_right;
-  if (n_colors == 1) {
-    for (long e = 0; e < n_edges; ++e) color[e] = 0;
-    return 0;
-  }
-  // adjacency: per vertex, the incident edge ids (each edge listed at
-  // its left vertex and at its right vertex).  Rebuilt per level over
-  // the level's edge order (bucketed by current color prefix).
-  std::vector<int32_t> cur_color(n_edges, 0);
-  std::vector<int64_t> adj_start(n_vert + 1);
-  std::vector<int32_t> adj_edge(2 * n_edges);
-  std::vector<int64_t> cursor(n_vert);
-  std::vector<uint8_t> used(n_edges);
-  // edge ids bucketed by color class, rebuilt per level
-  std::vector<int32_t> bucket(n_edges), bucket_next(n_edges);
-  std::vector<int64_t> class_start, class_cnt;
-  for (long e = 0; e < n_edges; ++e) bucket[e] = (int32_t)e;
-  long n_classes = 1;
-  long deg = n_colors;  // degree of every vertex within each class
-  std::vector<int64_t> cls_off(2);
-  cls_off[0] = 0; cls_off[1] = n_edges;
-  // per-class splitter (classes hold disjoint edge sets, so threads
-  // share `used`/`cur_color` without contention; each thread carries its
-  // own adjacency scratch)
-  auto split_classes = [&](long cls_lo, long cls_hi,
-                           std::vector<int64_t>& t_adj_start,
-                           std::vector<int32_t>& t_adj_edge,
-                           std::vector<int64_t>& t_cursor) {
-    for (long cls = cls_lo; cls < cls_hi; ++cls) {
-      const int64_t lo = cls_off[cls], hi = cls_off[cls + 1];
-      // build adjacency for this class
-      std::fill(t_adj_start.begin(), t_adj_start.end(), 0);
-      for (int64_t i = lo; i < hi; ++i) {
-        const int32_t e = bucket[i];
-        t_adj_start[left[e] + 1]++;
-        t_adj_start[n_left + right[e] + 1]++;
-      }
-      for (long v = 0; v < n_vert; ++v)
-        t_adj_start[v + 1] += t_adj_start[v];
-      for (long v = 0; v < n_vert; ++v) t_cursor[v] = t_adj_start[v];
-      for (int64_t i = lo; i < hi; ++i) {
-        const int32_t e = bucket[i];
-        t_adj_edge[t_cursor[left[e]]++] = e;
-        t_adj_edge[t_cursor[n_left + right[e]]++] = e;
-      }
-      for (long v = 0; v < n_vert; ++v) t_cursor[v] = t_adj_start[v];
-      // closed-trail decomposition: from any vertex with an unused
-      // edge, greedily walk until stuck (even degrees => stuck only at
-      // the start), alternating the split bit along the trail.  Each
-      // visit to a vertex consumes one in-edge and one out-edge with
-      // opposite bits, so every vertex's class degree splits evenly.
-      for (int64_t i = lo; i < hi; ++i) {
-        const int32_t e0 = bucket[i];
-        if (used[e0]) continue;
-        long v = left[e0];  // start of a new closed trail
-        int bit = 0;
-        while (true) {
-          // next unused incident edge of v in this class
-          int32_t e = -1;
-          while (t_cursor[v] < t_adj_start[v + 1]) {
-            const int32_t cand = t_adj_edge[t_cursor[v]];
-            if (!used[cand]) { e = cand; break; }
-            t_cursor[v]++;
-          }
-          if (e < 0) break;  // trail closed
-          used[e] = 1;
-          cur_color[e] = (int32_t)((cur_color[e] << 1) | bit);
-          bit ^= 1;
-          v = (v == left[e]) ? (long)(n_left + right[e]) : (long)left[e];
-        }
-      }
-    }
-  };
-  while (deg > 1) {
-    // split every class: walk closed trails, alternate edges
-    std::fill(used.begin(), used.end(), 0);
-    long n_thr = (long)std::thread::hardware_concurrency();
-    if (n_thr < 1) n_thr = 1;
-    if (n_thr > n_classes) n_thr = n_classes;
-    if (n_thr <= 1) {
-      split_classes(0, n_classes, adj_start, adj_edge, cursor);
-    } else {
-      std::vector<std::thread> thr;
-      std::vector<std::vector<int64_t>> as(n_thr), cu(n_thr);
-      std::vector<std::vector<int32_t>> ae(n_thr);
-      for (long t = 0; t < n_thr; ++t) {
-        as[t].resize(n_vert + 1);
-        cu[t].resize(n_vert);
-        ae[t].resize(2 * (n_edges / n_classes) + 2);
-        const long c0 = t * n_classes / n_thr;
-        const long c1 = (t + 1) * n_classes / n_thr;
-        thr.emplace_back([&, t, c0, c1]() {
-          split_classes(c0, c1, as[t], ae[t], cu[t]);
-        });
-      }
-      for (auto& th : thr) th.join();
-    }
-    // re-bucket by the new (doubled) class count via counting sort
-    deg >>= 1;
-    n_classes <<= 1;
-    cls_off.assign(n_classes + 1, 0);
-    for (long e = 0; e < n_edges; ++e) cls_off[cur_color[e] + 1]++;
-    for (long c = 0; c < n_classes; ++c) cls_off[c + 1] += cls_off[c];
-    std::vector<int64_t> pos(cls_off.begin(), cls_off.end() - 1);
-    for (long e = 0; e < n_edges; ++e)
-      bucket_next[pos[cur_color[e]]++] = (int32_t)e;
-    bucket.swap(bucket_next);
-  }
-  for (long e = 0; e < n_edges; ++e) color[e] = cur_color[e];
-  return 0;
-}
-
-}  // extern "C"
-
-extern "C" {
-
-// Batched small-bipartite edge coloring (the window / q-block colorings
-// of the Clos permutation planner): many INDEPENDENT nL×nR bipartite
-// multigraphs (nL, nR ≤ 16), each with all left/right degrees exactly
-// n_colors (a power of two).  The generic colorer above walks global
-// edge lists (cache-hostile at 4M edges: measured ~6 s/call); here each
-// batch's multigraph is an L1-resident count matrix and the Euler split
-// recurses on counts, then colors are dealt to each cell's edges in
-// order — ~40× faster at the planner's sizes.
-//
-// Edges arrive in ARBITRARY order; batch[e] in [0, n_batch).  Writes
-// color[e] in [0, n_colors).  Returns 0, -1 on invalid input.
-long smtpu_edge_color_batched(const int32_t* left, const int32_t* right,
-                              const int32_t* batch, long n_edges,
-                              long n_batch, long nL, long nR,
-                              long n_colors, int32_t* color) {
-  if (n_colors <= 0 || (n_colors & (n_colors - 1)) != 0) return -1;
-  if (nL > 16 || nR > 16 || nL <= 0 || nR <= 0) return -1;
-  // bucket edges by batch (counting sort)
-  std::vector<int64_t> boff(n_batch + 1, 0);
-  for (long e = 0; e < n_edges; ++e) {
-    if (batch[e] < 0 || batch[e] >= n_batch) return -1;
-    boff[batch[e] + 1]++;
-  }
-  for (long b = 0; b < n_batch; ++b) boff[b + 1] += boff[b];
-  std::vector<int64_t> cur(boff.begin(), boff.end() - 1);
-  std::vector<int32_t> eid(n_edges);
-  for (long e = 0; e < n_edges; ++e) eid[cur[batch[e]]++] = (int32_t)e;
-
-  const int cells = (int)(nL * nR);
-  // iterative split with explicit stack of (count-matrix, base, d)
-  const int max_depth = 20;
-  std::vector<int32_t> mats((max_depth + 2) * cells * 2);
-  std::vector<int32_t> pair_cell(n_edges < (long)(nL * n_colors)
-                                 ? nL * n_colors : 0);
-  for (long b = 0; b < n_batch; ++b) {
-    const int64_t lo = boff[b], hi = boff[b + 1];
-    if (lo == hi) continue;
-    if (hi - lo != (long)(nL * n_colors)) return -2;  // not regular
-    // build count matrix
-    std::vector<int32_t> orig(cells, 0);
-    for (int64_t i = lo; i < hi; ++i) {
-      const int32_t e = eid[i];
-      orig[left[e] * nR + right[e]]++;
-    }
-    // (cell, color) leaves
-    std::vector<int32_t> leaves(2 * (hi - lo));
-    long n_leaves = 0;
-    // explicit recursion
-    struct Frame { long d; int32_t base; int32_t* cnt; };
-    std::vector<std::vector<int32_t>> pool;
-    std::vector<Frame> stack;
-    pool.emplace_back(orig);
-    stack.push_back({n_colors, 0, pool.back().data()});
-    std::vector<std::vector<int32_t>> keep;  // keep pool storage alive
-    while (!stack.empty()) {
-      Frame f = stack.back();
-      stack.pop_back();
-      if (f.d == 1) {
-        for (int i = 0; i < cells; ++i)
-          if (f.cnt[i]) {
-            leaves[2 * n_leaves] = i;
-            leaves[2 * n_leaves + 1] = f.base;
-            n_leaves++;
-          }
-        continue;
-      }
-      // split f.cnt into A/B via count-matrix Euler walk
-      keep.emplace_back(cells, 0);
-      int32_t* A = keep.back().data();
-      keep.emplace_back(f.cnt, f.cnt + cells);
-      int32_t* W = keep.back().data();  // working copy to consume
-      int curL[16] = {0}, curR[16] = {0};
-      long degL[16];
-      for (int u = 0; u < nL; ++u) {
-        long s = 0;
-        for (int c = 0; c < nR; ++c) s += W[u * nR + c];
-        degL[u] = s;
-      }
-      int start = 0;
-      long remaining = f.d * nL;
-      while (remaining > 0) {
-        while (start < nL && degL[start] == 0) start++;
-        int v = start, side = 0, bit = 0;
-        while (true) {
-          int found = -1;
-          if (side == 0) {
-            for (int k = 0; k < (int)nR; ++k) {
-              int c = (curL[v] + k) % (int)nR;
-              if (W[v * nR + c] > 0) { found = c; curL[v] = c; break; }
-            }
-            if (found < 0) break;
-            W[v * nR + found]--;
-            degL[v]--;
-            if (bit == 0) A[v * nR + found]++;
-            bit ^= 1;
-            remaining--;
-            v = found; side = 1;
-          } else {
-            for (int k = 0; k < (int)nL; ++k) {
-              int u = (curR[v] + k) % (int)nL;
-              if (W[u * nR + v] > 0) { found = u; curR[v] = u; break; }
-            }
-            if (found < 0) break;
-            W[found * nR + v]--;
-            degL[found]--;
-            if (bit == 0) A[found * nR + v]++;
-            bit ^= 1;
-            remaining--;
-            v = found; side = 0;
-          }
-        }
-      }
-      // B = f.cnt - A (in place into f.cnt's storage)
-      for (int i = 0; i < cells; ++i) f.cnt[i] -= A[i];
-      stack.push_back({f.d / 2, f.base, A});
-      stack.push_back({f.d / 2, (int32_t)(f.base + f.d / 2), f.cnt});
-    }
-    // deal colors to edges: bucket leaves by cell, then walk edges
-    // bucketed by cell in arrival order
-    std::vector<int32_t> cell_off(cells + 1, 0);
-    for (long i = 0; i < n_leaves; ++i) cell_off[leaves[2 * i] + 1]++;
-    for (int i = 0; i < cells; ++i) cell_off[i + 1] += cell_off[i];
-    std::vector<int32_t> cell_colors(n_leaves);
-    std::vector<int32_t> ccur(cell_off.begin(), cell_off.end() - 1);
-    for (long i = 0; i < n_leaves; ++i)
-      cell_colors[ccur[leaves[2 * i]]++] = leaves[2 * i + 1];
-    std::vector<int32_t> take(cell_off.begin(), cell_off.end() - 1);
-    for (int64_t i = lo; i < hi; ++i) {
-      const int32_t e = eid[i];
-      const int cell = left[e] * (int)nR + right[e];
-      color[e] = cell_colors[take[cell]++];
     }
   }
   return 0;

@@ -1,28 +1,10 @@
 from .spmv import prepare_spmv, spmv, spmv_reference
 from .spmm import spmm, spmm_reference, spmm_right, spmm_densify
 from .addmatmat import add_mat_mat
-from .spgemm import (SpGEMMPacked, SpGEMMPlan, spgemm, spgemm_apply,
-                     spgemm_apply_packed, spgemm_apply_packed_csc,
-                     spgemm_densify, spgemm_extract,
-                     spgemm_plan, spgemm_plan_packed)
-from ..kernels.trisolve_waves import (
-    TriWavesPlan,
-    trisolve_waves_apply,
-    trisolve_waves_apply_mm,
-    trisolve_waves_solve,
-    trisolve_waves_plan,
-)
-from ..kernels.trisolve_fused import (
-    TriFusedPlan,
-    trisolve_fused_apply,
-    trisolve_fused_apply_batched,
-    trisolve_fused_plan,
-)
+from .spgemm import (SpGEMMPlan, spgemm, spgemm_apply, spgemm_densify,
+                     spgemm_extract, spgemm_plan)
 from .trisolve import (
     TriFixPlan,
-    TriLevelPlan,
-    trisolve_level_apply,
-    trisolve_level_plan,
     TriSolvePlan,
     trisolve,
     trisolve_apply,
@@ -30,21 +12,13 @@ from .trisolve import (
     trisolve_fixpoint_plan,
     trisolve_plan,
 )
-from .ichol import (ic0, ic0_fixpoint_plans, ic0_fused_plans,
-                    ic0_waves_plans,
-                    ic0_level_plans, ic0_plans, ic_apply)
+from .ichol import ic0, ic0_fixpoint_plans, ic0_plans, ic_apply
 from .direct import SpluSolver, splu_plans, splu_solve
-from .ilu import (ilu0, ilu0_fixpoint_plans, ilu0_fused_plans,
-                  ilu0_waves_plans,
-                  ilu0_level_plans, ilu0_plans, ilu_apply)
+from .ilu import ilu0, ilu0_fixpoint_plans, ilu0_plans, ilu_apply
 from .transpose_ops import csr_transpose_device, spmv_t, spmm_t
 from .quantized import (QuantizedCodebookDense, add_mat_mat_int8,
                         add_mat_mat_int16, quantize_codebook)
-from .permute import (PermutePlan, apply_permutation,
-                      plan_gather_permutation, plan_permutation_auto)
-from .permute_clos import (ClosPermutePlan, apply_clos_permutation,
-                           plan_clos_permutation)
-from .skew import SkewSpmv, pack_skew, spmv_skew
+from .permute import PermutePlan, apply_permutation, plan_gather_permutation
 from .spmm_lowdeg import SlicedEllMM, pack_sliced_ell, spmm_sliced_ell
 from .add import SparseAddPlan, sparse_add, sparse_add_apply, sparse_add_plan
 from .elementwise import scale, axpy_same_pattern, diagonal, frobenius_norm, with_data
@@ -62,10 +36,6 @@ __all__ = [
     "spgemm",
     "spgemm_densify",
     "spgemm_extract",
-    "SpGEMMPacked",
-    "spgemm_plan_packed",
-    "spgemm_apply_packed",
-    "spgemm_apply_packed_csc",
     "spgemm_apply",
     "spgemm_plan",
     "TriSolvePlan",
@@ -75,25 +45,9 @@ __all__ = [
     "TriFixPlan",
     "trisolve_fixpoint_apply",
     "trisolve_fixpoint_plan",
-    "TriLevelPlan",
-    "trisolve_level_apply",
-    "trisolve_level_plan",
-    "TriFusedPlan",
-    "trisolve_fused_apply",
-    "trisolve_fused_apply_batched",
-    "trisolve_fused_plan",
-    "TriWavesPlan",
-    "trisolve_waves_apply",
-    "trisolve_waves_apply_mm",
-    "trisolve_waves_solve",
-    "trisolve_waves_plan",
-    "ilu0_waves_plans",
-    "ic0_waves_plans",
     "ic0",
     "ic0_plans",
     "ic0_fixpoint_plans",
-    "ic0_level_plans",
-    "ic0_fused_plans",
     "ic_apply",
     "SpluSolver",
     "splu_plans",
@@ -101,8 +55,6 @@ __all__ = [
     "ilu0",
     "ilu0_plans",
     "ilu0_fixpoint_plans",
-    "ilu0_level_plans",
-    "ilu0_fused_plans",
     "ilu_apply",
     "spmv_t",
     "csr_transpose_device",
@@ -121,15 +73,8 @@ __all__ = [
     "sparse_add_apply",
     "sparse_add_plan",
     "PermutePlan",
-    "ClosPermutePlan",
     "plan_gather_permutation",
-    "plan_clos_permutation",
-    "plan_permutation_auto",
     "apply_permutation",
-    "apply_clos_permutation",
-    "SkewSpmv",
-    "pack_skew",
-    "spmv_skew",
     "SlicedEllMM",
     "pack_sliced_ell",
     "spmm_sliced_ell",

@@ -1,17 +1,17 @@
 """``add_mat_mat`` — the reference's single math op, with identical semantics.
 
 ``C = beta * C + alpha * A_dense(m×k) @ B_sparse(k×n)``
-(/root/reference/src/sparse/sparse-matrix.cc:140-194: beta pre-pass at
+(reference src/sparse/sparse-matrix.cc:140-194: beta pre-pass at
 :149-151, alpha folded into gathered values at kernel.cc:239).
 
-TPU formulation: B is stored **pre-transposed** (``B_t``: n×k sparse, built
+Formulation: B is stored **pre-transposed** (``B_t``: n×k sparse, built
 with ``trans=True`` — the reference's ``SblasTrans`` encode,
 blas_test.h:145), so the product is a plain SpMM:
 ``A @ B = (B^T @ A^T)^T = spmm(B_t, A^T)^T``.
 No runtime transposition of sparse data ever happens, and XLA fuses the two
 dense transposes into layout choices (the reference instead spends real time
 in ``sblas_trans_kernel`` scratch transposes, sparse-matrix.cc:180-189 —
-overhead the TPU design eliminates by construction).
+overhead this design eliminates by construction).
 """
 from __future__ import annotations
 

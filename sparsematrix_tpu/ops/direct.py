@@ -2,10 +2,9 @@
 
 Factorization is a one-time host step (scipy ``splu`` — supernodal LU
 with fill-reducing column permutation); the triangular factors are then
-packed into the fused single-pallas-call solve plans
-(kernels/trisolve_fused.py), so REPEATED solves against new right-hand
-sides run entirely on device: two gathers (the row/column permutations)
-around two fused triangular solves.
+planned for the level-scheduled solve (ops/trisolve.py), so REPEATED
+solves against new right-hand sides run entirely on device: two gathers
+(the row/column permutations) around two level-scan triangular solves.
 
 scipy's convention is ``A = Pr^T @ L @ U @ Pc^T`` (perm_r/perm_c as
 index arrays), hence ``x = Pc @ U⁻¹ L⁻¹ (Pr @ b)``; both permutations
@@ -25,6 +24,8 @@ import numpy as np
 
 from ..formats.base import register_sparse_pytree
 from ..formats.csr import CSR
+from .ilu import ilu_apply
+from .trisolve import TriSolvePlan, trisolve_plan
 
 __all__ = ["splu_plans", "splu_solve", "SpluSolver"]
 
@@ -32,45 +33,31 @@ __all__ = ["splu_plans", "splu_solve", "SpluSolver"]
 @register_sparse_pytree
 @dataclasses.dataclass(frozen=True)
 class SpluSolver:
-    l_plan: object  # TriWavesPlan or TriFusedPlan, unit-lower
-    u_plan: object  # TriWavesPlan or TriFusedPlan, upper
+    l_plan: TriSolvePlan  # unit-lower
+    u_plan: TriSolvePlan  # upper
     inv_perm_r: jnp.ndarray  # (n,) int32 — gather indices for Pr @ b
     perm_c: jnp.ndarray  # (n,) int32 — gather indices for Pc @ y
     shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
     lu_nnz: int = dataclasses.field(metadata={"static": True})  # fill incl.
 
 
-def splu_plans(A: CSR, engine: str = "waves", **plan_kwargs) -> SpluSolver:
+def splu_plans(A: CSR) -> SpluSolver:
     """Factor ``A`` (square, nonsingular) with SuperLU and build the
-    device solve plans.
-
-    ``engine``: "waves" (default — host-inverted block solves,
-    kernels/trisolve_waves.py, 6-17x the fused engine) or "fused"
-    (slab-walk solves; use for very large factors where the wave
-    inverse blocks would outgrow HBM, or when the solver must be
-    differentiable in the factor values).  ``plan_kwargs`` forward to
-    the chosen plan builder (e.g. ``dtype=jnp.bfloat16``, binv ``m=``).
-    """
+    device solve plans."""
     import scipy.sparse.linalg as spla
-
-    from ..kernels.trisolve_fused import trisolve_fused_plan
-    from ..kernels.trisolve_waves import trisolve_waves_plan
 
     if A.shape[0] != A.shape[1]:
         raise ValueError(f"splu needs a square matrix, got {A.shape}")
-    if engine not in ("waves", "fused"):
-        raise ValueError(f"unknown engine {engine!r}")
     lu = spla.splu(A.to_scipy().tocsc())
     n = A.shape[0]
     L = CSR.from_scipy(lu.L.tocsr())
     U = CSR.from_scipy(lu.U.tocsr())
-    plan = trisolve_waves_plan if engine == "waves" else trisolve_fused_plan
     # (Pr @ b)[perm_r[i]] = b[i]  ⇔  gather with the inverse permutation
     inv_pr = np.empty(n, np.int32)
     inv_pr[lu.perm_r] = np.arange(n, dtype=np.int32)
     return SpluSolver(
-        l_plan=plan(L, lower=True, unit_diagonal=True, **plan_kwargs),
-        u_plan=plan(U, lower=False, unit_diagonal=False, **plan_kwargs),
+        l_plan=trisolve_plan(L, lower=True, unit_diagonal=True),
+        u_plan=trisolve_plan(U, lower=False, unit_diagonal=False),
         inv_perm_r=jnp.asarray(inv_pr),
         perm_c=jnp.asarray(lu.perm_c.astype(np.int32)),
         shape=A.shape,
@@ -80,22 +67,7 @@ def splu_plans(A: CSR, engine: str = "waves", **plan_kwargs) -> SpluSolver:
 
 def splu_solve(solver: SpluSolver, b):
     """``x = A⁻¹ b`` on device (jittable): gather → L-solve → U-solve →
-    gather.  ``b`` is a vector (n,) or a multi-RHS panel (n, k) — the
-    waves engine then runs its MXU multi-RHS kernel (8 RHS per grid
-    pass)."""
-    from ..kernels.trisolve_fused import (trisolve_fused_apply,
-                                          trisolve_fused_apply_batched)
-    from ..kernels.trisolve_waves import (TriWavesPlan,
-                                          trisolve_waves_apply,
-                                          trisolve_waves_apply_mm)
-
-    waves = isinstance(solver.l_plan, TriWavesPlan)
-    if jnp.ndim(b) == 2:
-        apply_ = (trisolve_waves_apply_mm if waves
-                  else trisolve_fused_apply_batched)
-    else:
-        apply_ = trisolve_waves_apply if waves else trisolve_fused_apply
+    gather.  ``b`` is a vector (n,) or a multi-RHS panel (n, k)."""
     y = b[solver.inv_perm_r]
-    y = apply_(solver.l_plan, y)
-    y = apply_(solver.u_plan, y)
+    y = ilu_apply((solver.l_plan, solver.u_plan), y)
     return y[solver.perm_c]

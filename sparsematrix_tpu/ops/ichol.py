@@ -3,10 +3,10 @@
 For SPD systems the symmetric analogue of ILU(0): factor ``A ≈ L @ L^T``
 on the sparsity pattern of ``tril(A)``, then precondition with
 ``M⁻¹ r = L⁻ᵀ (L⁻¹ r)``.  Host-side build (the reference's encode-once
-stance, /root/reference/src/sparse/sparse-matrix.cc:21 — setup is a
-host-time phase); the device-side solves reuse every triangular-solve
-engine (level-scheduled scan, fixed-point, level-packed, fused
-single-call), with the upper solve running on ``L^T``.
+stance, reference src/sparse/sparse-matrix.cc:21 — setup is a
+host-time phase); the device-side solves reuse both triangular-solve
+engines (level-scheduled scan, fixed-point), with the upper solve
+running on ``L^T``.
 
 No reference analogue (SURVEY §7 phase C); verified by the pattern
 identity ``(L L^T)[i,j] == A[i,j]`` on stored positions of ``tril(A)``
@@ -14,19 +14,12 @@ and by preconditioned-CG residual reduction.
 """
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 
 from ..formats import CSR
-from .trisolve import (
-    trisolve_fixpoint_plan,
-    trisolve_level_plan,
-    trisolve_plan,
-)
+from .trisolve import trisolve_fixpoint_plan, trisolve_plan
 
-__all__ = ["ic0", "ic0_plans", "ic0_fixpoint_plans", "ic0_level_plans",
-           "ic0_fused_plans", "ic_apply"]
+__all__ = ["ic0", "ic0_plans", "ic0_fixpoint_plans", "ic_apply"]
 
 
 def _ic0_factor_python(indptr, indices, a, n):
@@ -125,53 +118,16 @@ def ic0_plans(A: CSR):
     )
 
 
-def ic0_fixpoint_plans(A: CSR, n_iters: int | None = None, **pack_kwargs):
+def ic0_fixpoint_plans(A: CSR, n_iters: int | None = None,
+                       capacity: int | None = None):
     """Factor + fixed-point (SpMV-formulated) solve plans; ``n_iters``
     truncates both solves (approximate preconditioner)."""
     L = ic0(A)
     return (
         trisolve_fixpoint_plan(L, lower=True, unit_diagonal=False,
-                               n_iters=n_iters, **pack_kwargs),
+                               n_iters=n_iters, capacity=capacity),
         trisolve_fixpoint_plan(_lt(L), lower=False, unit_diagonal=False,
-                               n_iters=n_iters, **pack_kwargs),
-    )
-
-
-def ic0_level_plans(A: CSR, **plan_kwargs):
-    """Factor + level-packed solve plans (one kernel call per level)."""
-    L = ic0(A)
-    return (
-        trisolve_level_plan(L, lower=True, unit_diagonal=False,
-                            **plan_kwargs),
-        trisolve_level_plan(_lt(L), lower=False, unit_diagonal=False,
-                            **plan_kwargs),
-    )
-
-
-def ic0_fused_plans(A: CSR, **plan_kwargs):
-    """Factor + single-pallas-call solve plans (all levels, one launch)."""
-    from ..kernels.trisolve_fused import trisolve_fused_plan
-
-    L = ic0(A)
-    return (
-        trisolve_fused_plan(L, lower=True, unit_diagonal=False,
-                            **plan_kwargs),
-        trisolve_fused_plan(_lt(L), lower=False, unit_diagonal=False,
-                            **plan_kwargs),
-    )
-
-
-def ic0_waves_plans(A: CSR, **plan_kwargs):
-    """Factor + wave-solve plans (host-inverted blocks, MXU commits —
-    the fastest exact solve family, kernels/trisolve_waves.py)."""
-    from ..kernels.trisolve_waves import trisolve_waves_plan
-
-    L = ic0(A)
-    return (
-        trisolve_waves_plan(L, lower=True, unit_diagonal=False,
-                            **plan_kwargs),
-        trisolve_waves_plan(_lt(L), lower=False, unit_diagonal=False,
-                            **plan_kwargs),
+                               n_iters=n_iters, capacity=capacity),
     )
 
 

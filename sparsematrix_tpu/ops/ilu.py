@@ -20,18 +20,14 @@ import numpy as np
 from ..formats import CSR
 from .trisolve import (
     TriFixPlan,
-    TriLevelPlan,
     TriSolvePlan,
     trisolve_apply,
     trisolve_fixpoint_apply,
     trisolve_fixpoint_plan,
-    trisolve_level_apply,
-    trisolve_level_plan,
     trisolve_plan,
 )
 
-__all__ = ["ilu0", "ilu0_plans", "ilu0_fixpoint_plans", "ilu0_level_plans",
-           "ilu0_fused_plans", "ilu_apply"]
+__all__ = ["ilu0", "ilu0_plans", "ilu0_fixpoint_plans", "ilu_apply"]
 
 
 def _ilu0_factor_python(indptr, indices, a, n):
@@ -133,106 +129,32 @@ def ilu0_plans(A: CSR) -> Tuple[TriSolvePlan, TriSolvePlan]:
 
 
 def ilu0_fixpoint_plans(A: CSR, n_iters: int | None = None,
-                        **pack_kwargs) -> Tuple[TriFixPlan, TriFixPlan]:
+                        capacity: int | None = None
+                        ) -> Tuple[TriFixPlan, TriFixPlan]:
     """Factor + build fixed-point (SpMV-formulated) solve plans.
 
-    The triangular solves run as nilpotent Jacobi iterations on the
-    row-lane Pallas SpMV kernel — no per-level gathers.  ``n_iters``
-    truncates both solves (approximate preconditioner, still a fixed
-    linear operator); ``None`` → exact.
+    The triangular solves run as nilpotent Jacobi iterations, one CSR
+    SpMV each.  ``n_iters`` truncates both solves (approximate
+    preconditioner, still a fixed linear operator); ``None`` → exact.
     """
     L, U = ilu0(A)
     return (
         trisolve_fixpoint_plan(L, lower=True, unit_diagonal=True,
-                               n_iters=n_iters, **pack_kwargs),
+                               n_iters=n_iters, capacity=capacity),
         trisolve_fixpoint_plan(U, lower=False, unit_diagonal=False,
-                               n_iters=n_iters, **pack_kwargs),
-    )
-
-
-def ilu0_level_plans(A: CSR, **plan_kwargs) -> Tuple[TriLevelPlan,
-                                                     TriLevelPlan]:
-    """Factor + build level-packed solve plans (one row-lane kernel call
-    per dependency level; total slab work = one SpMV per solve)."""
-    L, U = ilu0(A)
-    return (
-        trisolve_level_plan(L, lower=True, unit_diagonal=True,
-                            **plan_kwargs),
-        trisolve_level_plan(U, lower=False, unit_diagonal=False,
-                            **plan_kwargs),
-    )
-
-
-def ilu0_fused_plans(A: CSR, **plan_kwargs):
-    """Factor + build single-pallas-call solve plans (all levels in one
-    kernel launch — the fast exact family for deep level structures)."""
-    from ..kernels.trisolve_fused import trisolve_fused_plan
-
-    L, U = ilu0(A)
-    return (
-        trisolve_fused_plan(L, lower=True, unit_diagonal=True,
-                            **plan_kwargs),
-        trisolve_fused_plan(U, lower=False, unit_diagonal=False,
-                            **plan_kwargs),
-    )
-
-
-def ilu0_waves_plans(A: CSR, **plan_kwargs):
-    """Factor + wave-solve plans (host-inverted diagonal blocks, MXU
-    commits — kernels/trisolve_waves.py; the fastest exact family:
-    5.3 µs/solve vs the fused engine's 89 µs at the n=4096 Poisson
-    point)."""
-    from ..kernels.trisolve_waves import trisolve_waves_plan
-
-    L, U = ilu0(A)
-    return (
-        trisolve_waves_plan(L, lower=True, unit_diagonal=True,
-                            **plan_kwargs),
-        trisolve_waves_plan(U, lower=False, unit_diagonal=False,
-                            **plan_kwargs),
+                               n_iters=n_iters, capacity=capacity),
     )
 
 
 def ilu_apply(plans, r):
     """Apply the preconditioner: ``M⁻¹ r`` (jittable).
 
-    Accepts any plan family (level-scheduled, fixed-point, level-packed,
-    fused single-call, or wave).  A 2-D ``r`` panel (n, k) routes to the
-    multi-RHS engines (waves: 8 RHS per MXU pass; fused: column scan)."""
-    from ..kernels.trisolve_fused import (TriFusedPlan,
-                                          trisolve_fused_apply,
-                                          trisolve_fused_apply_batched)
-    from ..kernels.trisolve_waves import (TriWavesPlan,
-                                          trisolve_waves_apply,
-                                          trisolve_waves_apply_mm)
-
+    Accepts level-scheduled or fixed-point plan pairs.  A 2-D ``r``
+    panel (n, k) solves its columns through one vmapped solve."""
     lp, up = plans
-    multi = jnp.ndim(r) == 2
-    if isinstance(lp, TriFixPlan):
-        if multi:
-            return jax.vmap(
-                lambda c: trisolve_fixpoint_apply(
-                    up, trisolve_fixpoint_apply(lp, c)),
-                in_axes=1, out_axes=1)(r)
-        return trisolve_fixpoint_apply(up, trisolve_fixpoint_apply(lp, r))
-    if isinstance(lp, TriLevelPlan):
-        if multi:
-            return jax.vmap(
-                lambda c: trisolve_level_apply(
-                    up, trisolve_level_apply(lp, c)),
-                in_axes=1, out_axes=1)(r)
-        return trisolve_level_apply(up, trisolve_level_apply(lp, r))
-    if isinstance(lp, TriFusedPlan):
-        if multi:
-            return trisolve_fused_apply_batched(
-                up, trisolve_fused_apply_batched(lp, r))
-        return trisolve_fused_apply(up, trisolve_fused_apply(lp, r))
-    if isinstance(lp, TriWavesPlan):
-        if multi:
-            return trisolve_waves_apply_mm(up, trisolve_waves_apply_mm(
-                lp, r))
-        return trisolve_waves_apply(up, trisolve_waves_apply(lp, r))
-    if multi:
-        return jax.vmap(lambda c: trisolve_apply(up, trisolve_apply(lp, c)),
-                        in_axes=1, out_axes=1)(r)
-    return trisolve_apply(up, trisolve_apply(lp, r))
+    apply_ = (trisolve_fixpoint_apply if isinstance(lp, TriFixPlan)
+              else trisolve_apply)
+    solve = lambda c: apply_(up, apply_(lp, c))
+    if jnp.ndim(r) == 2:
+        return jax.vmap(solve, in_axes=1, out_axes=1)(r)
+    return solve(r)

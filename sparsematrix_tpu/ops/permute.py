@@ -1,19 +1,14 @@
-"""Planned device permutations via the TPU sort network.
+"""Planned device permutations: a gather plan or a sort plan.
 
-An ARBITRARY gather ``x[g]`` runs at ~6.7-8.6 ns/element on this chip
-(XLA lowers it to scalar loads; CLAUDE.md's 65k-gather rule).  But
-``lax.sort_key_val`` moves the same data at ~1.9 ns/element (measured
-4.5× at 4.2 M, benchmarks/probe_permute.py) — so any permutation KNOWN
-AT PLAN TIME should ship as sort keys, not gather indices: sorting
-``x`` by the INVERSE permutation delivers ``x[g]``.
-
-This is the CSR-output rescue for SpGEMM (the output permutation was
-~90 % of the packed rows, DESIGN.md round-4) and a general primitive for
-any planned reorder (CSC→CSR, clustering scatter, partition shuffles).
+A permutation KNOWN AT PLAN TIME can run as the gather ``x[g]`` or as
+``lax.sort_key_val`` keyed by the INVERSE permutation, which delivers the
+same ``x[g]``.  ``plan_gather_permutation`` builds both forms; which one
+``apply_permutation`` runs is fixed in the plan (``SORT_MIN_ELEMS``, or
+``force_sort``).  A general primitive for any planned reorder (CSC→CSR,
+partition shuffles).
 
 Reference analogue: none — the reference permutes on the host
-(/root/reference/src/sparse/sparse-matrix.cc CopyTo); on TPU the device
-permutation IS the cost being engineered.
+(reference src/sparse/sparse-matrix.cc CopyTo).
 """
 from __future__ import annotations
 
@@ -25,14 +20,10 @@ import numpy as np
 
 from ..formats.base import register_sparse_pytree
 
-__all__ = ["PermutePlan", "plan_gather_permutation", "apply_permutation",
-           "plan_permutation_auto"]
+__all__ = ["PermutePlan", "plan_gather_permutation", "apply_permutation"]
 
-# fixed-timer re-measure (probe_permute, late r4): the sort wins at
-# EVERY size from 65k up (0.047 vs 0.439 ms at 65k, 9.3×; 1.57 vs 9.02
-# at 1M) — the earlier 2^19 threshold came from relay-fake readings.
-# Below this floor both paths are tens of µs and the gather saves the
-# key-array memory.
+# plans of at least this many elements default to the sort form; below it
+# the gather saves the key-array memory.  Awaiting a sweep on the card.
 SORT_MIN_ELEMS = 1 << 14
 
 
@@ -102,43 +93,16 @@ def plan_gather_permutation(g, n_src: int, n_out: int | None = None,
     )
 
 
-def plan_permutation_auto(g, n_src: int, n_out: int | None = None):
-    """Best planned permutation for the size: Clos-routed planes when the
-    geometry supports them (measured 13-29× the sort at every size from
-    300k to 8.4M, benchmarks/probe_permute_clos.py), else the sort/gather
-    plan.  ``apply_permutation`` dispatches on the returned plan type."""
-    g = np.asarray(g)
-    n = len(g) if n_out is None else n_out
-    if n >= SORT_MIN_ELEMS:
-        from .permute_clos import plan_clos_permutation
-
-        p = plan_clos_permutation(g, n_src=n_src, n_out=n_out)
-        if p is not None:
-            return p
-    return plan_gather_permutation(g, n_src=n_src, n_out=n_out)
-
-
 def apply_permutation(plan, x):
     """Run the planned permutation on device (jittable).
 
     ``x`` is (n_src,) or longer (extra tail ignored); returns (n_out,).
     2-D ``x`` of shape (n_src, k) is permuted ROW-wise — each moved row
-    is one contiguous k-element run, so the plain XLA row scatter/gather
-    is already bandwidth-shaped (the Clos planes and the sort network
-    are vector layouts; they don't apply per-row).
-    Accepts a ``PermutePlan`` (sort/gather) or a ``ClosPermutePlan``
-    (ops/permute_clos.py — O(1) bandwidth passes; the measured-fastest
-    path at every size it supports).
+    is one contiguous k-element run, so the row scatter/gather is already
+    bandwidth-shaped.
     """
-    from .permute_clos import ClosPermutePlan, apply_clos_permutation
-
     if x.ndim == 2:
         return _apply_permutation_rows(plan, x)
-    if isinstance(plan, ClosPermutePlan):
-        from ..config import config
-
-        return apply_clos_permutation(plan, x,
-                                      interpret=config.interpret())
     if not plan.use_sort:
         xp = jnp.concatenate([x[: plan.n_src],
                               jnp.zeros((1,), x.dtype)])
@@ -154,15 +118,7 @@ def apply_permutation(plan, x):
 
 def _apply_permutation_rows(plan, x):
     """Row-wise apply for (n_src, k) inputs (see apply_permutation)."""
-    from .permute_clos import ClosPermutePlan
-
     k = x.shape[1]
-    if isinstance(plan, ClosPermutePlan):
-        # inv maps each LIVE source to its output slot (n_out = dropped
-        # sink); sentinel output slots are never written and stay zero
-        out = (jnp.zeros((plan.n_out + 1, k), x.dtype)
-               .at[plan.inv].set(x[: plan.n_src]))
-        return out[: plan.n_out]
     if not plan.use_sort:
         xp = jnp.concatenate(
             [x[: plan.n_src], jnp.zeros((1, k), x.dtype)])

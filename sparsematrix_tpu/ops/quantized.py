@@ -1,10 +1,10 @@
-"""Integer-activation GEMM — the ``wgemm_plus`` capability, TPU-native.
+"""Integer-activation GEMM — the ``wgemm_plus`` capability.
 
 The reference's vendored OpenBLAS fork ships a non-standard int16
 activation GEMM (``cblas_wgemm_plus``,
-/root/reference/openblas_darwin_plus/include/cblas.h:252-257) so quantized
+reference openblas_darwin_plus/include/cblas.h:252-257) so quantized
 activations can multiply the codebook-quantized weights without an fp32
-blow-up.  The TPU analogue uses the v5e's native int8 MXU path: activations
+blow-up.  The analogue here is an int8 product: activations
 are quantized per-tensor to int8, the ≤255-entry codebook is quantized to
 int8 once at build time, the contraction runs int8×int8→int32, and one
 scalar rescale recovers the fp32 result.
@@ -72,8 +72,8 @@ def add_mat_mat_int8(a, b_t_q: QuantizedCodebookDense, c=None,
     """``beta*C + alpha * A @ B`` with int8 activations × int8 codebook.
 
     ``b_t_q`` stores B^T (the SblasTrans convention, blas_test.h:145).
-    A is quantized per-tensor symmetric; the int32 contraction runs on the
-    MXU's native int8 path; one fused rescale restores fp32.
+    A is quantized per-tensor symmetric; the contraction accumulates in
+    int32; one fused rescale restores fp32.
     """
     if beta != 0 and c is None:
         raise ValueError("add_mat_mat_int8: beta != 0 requires c")
@@ -96,15 +96,15 @@ def add_mat_mat_int16(a, b_t_q: QuantizedCodebookDense, c=None,
                       alpha=1.0, beta=0.0):
     """``beta*C + alpha * A @ B`` with int16 activations × int8 codebook
     — the direct ``cblas_wgemm_plus`` analogue
-    (/root/reference/openblas_darwin_plus/include/cblas.h:252-257).
+    (reference openblas_darwin_plus/include/cblas.h:252-257).
 
-    The v5e MXU's integer path is int8×int8→int32, so the int16
+    The integer product is int8×int8→int32, so the int16
     activation is double-pumped as two int8 planes:
 
         a16 = 256·hi + (lo' + 128),  hi, lo' ∈ [-128, 127]
         A@B = 256·(hi@B) + lo'@B + 128·colsum(B)
 
-    Two MXU passes (2× the int8 cost) buy a 256× finer activation grid;
+    Two int8 products (2× the int8 cost) buy a 256× finer activation grid;
     each int8 partial stays well inside int32 (≤ k·127² ≈ 33 M at the
     reference k=2047) and the fp32 recombination is exact to ≤2 ulp.
     """

@@ -1,6 +1,6 @@
 """SpGEMM: ``C = A @ B`` with both operands sparse.
 
-TPU-native design — **symbolic / numeric split** (the sparse-library
+Design — **symbolic / numeric split** (the sparse-library
 classic, adapted to XLA's static-shape rule): the output structure and the
 multiply "program" are computed once on the host (symbolic phase); the
 numeric phase is a pure, jittable gather-multiply-segment_sum over static
@@ -26,11 +26,10 @@ import numpy as np
 
 from ..formats import CSR
 from ..formats.base import default_index_dtype, register_sparse_pytree
-from .permute import apply_permutation, plan_gather_permutation
+from ..utils.precision import matmul_precision
 
 __all__ = ["SpGEMMPlan", "spgemm_plan", "spgemm_apply", "spgemm",
-           "SpGEMMPacked", "spgemm_plan_packed", "spgemm_apply_packed",
-           "spgemm_apply_packed_csc", "spgemm_densify", "spgemm_extract"]
+           "spgemm_densify", "spgemm_extract"]
 
 
 @register_sparse_pytree
@@ -142,15 +141,11 @@ def spgemm_apply(plan: SpGEMMPlan, a_data, b_data) -> CSR:
     )
 
 
-# density-adaptive SpGEMM routing constants (re-measured late round 4 on
-# v5e): the dense densify+product+extract path runs ~23 TFLOP/s effective
-# (fp32 HIGHEST); the packed pair program's CSR-output apply
-# runs ~0.35 Gpairs/s now that the output permutation ships as a sort
-# (spgemm_crossover rows: 2.86 ms at 1.1 M pairs / 6.58 at 2.2 M — the
-# packed path beats densify-mxu at EVERY measured crossover point; the
-# dense product only wins in the small-n high-density corner).
-_DENSE_FLOPS_PER_S = 23e12  # measured: 5.84 ms for 2*4096^3 incl. extract
-_PACKED_PAIRS_PER_S = 0.4e9
+# density-adaptive SpGEMM routing constants: the modelled throughput of
+# the dense densify+product+extract path (FLOP/s) against the pair
+# program (pairs/s).  Awaiting a sweep on the card.
+_DENSE_FLOPS_PER_S = 23e12
+_PAIRS_PER_S = 0.4e9
 _DENSIFY_MAX_DENSE_ELEMS = 512 * 1024 * 1024  # 2 GB fp32 product cap
 
 
@@ -167,31 +162,20 @@ def spgemm(A: CSR, B: CSR, method: str = "auto",
            output: str = "csr") -> CSR:
     """One-shot SpGEMM (symbolic on host + numeric on device).
 
-    method: "auto" (density-adaptive: dense MXU product below the
-    measured crossover, packed pair program above), "sparse" (pair
-    program only), or "densify" (force the dense product + extract).
+    method: "auto" (density-adaptive: the dense product when its modelled
+    time beats the pair program's), "sparse" (pair program only), or
+    "densify" (force the dense product + extract).
 
     output: "csr" (C as CSR) or "csc" (C^T as CSR — the reference's
-    ``CopyTo(trans)`` convention, sparse-matrix.cc:124).  The clustered
-    pair program emits CSC order NATIVELY, so "csc" skips the output
-    permutation — a measured 10.1× at the XL point (32.3 → 3.2 ms,
-    benchmarks/probe_spgemm_xl.py): an arbitrary c_nnz-element gather
-    costs ~6.7 ns/element on this hardware and dominates everything else.
+    ``CopyTo(trans)`` convention, sparse-matrix.cc:124), computed as
+    ``Bᵀ @ Aᵀ`` so the result comes out in CSR order of C^T directly.
     """
     if method not in ("auto", "sparse", "densify"):
         raise ValueError(f"unknown method {method!r}")
     if output not in ("csr", "csc"):
         raise ValueError(f"unknown output {output!r}")
     if output == "csc":
-        # the packed clustered program is the only CSC-native path;
-        # honoring method="densify" here would silently re-order back
-        # through the very permutation "csc" exists to skip
-        if method == "densify":
-            raise ValueError(
-                'output="csc" implies the packed sparse path; '
-                'method="densify" cannot be honored (use output="csr")')
-        pp = spgemm_plan_packed(A, B, outputs=("csc",))
-        return spgemm_apply_packed_csc(pp, B.data)
+        return spgemm(B.transpose(), A.transpose(), method=method)
     m, k = A.shape
     _, n = B.shape
     if method != "sparse":
@@ -201,7 +185,7 @@ def spgemm(A: CSR, B: CSR, method: str = "auto",
         pick_dense = method == "densify"
         if method == "auto" and dense_ok:
             t_dense = 2.0 * m * k * n / _DENSE_FLOPS_PER_S
-            t_sparse = _estimate_pairs(A, B) / _PACKED_PAIRS_PER_S
+            t_sparse = _estimate_pairs(A, B) / _PAIRS_PER_S
             pick_dense = t_dense < t_sparse
         if pick_dense and dense_ok:
             plan = spgemm_plan(A, B)
@@ -211,25 +195,23 @@ def spgemm(A: CSR, B: CSR, method: str = "auto",
 
 
 def spgemm_densify(A, B):
-    """``C = A @ B`` on the MXU via densified operands (jittable).
+    """``C = A @ B`` via densified operands and one dense product
+    (jittable).
 
     The density-adaptive regime for SpGEMM: every gather-based pair
-    program moves ~5 bytes per FLOP-pair at scatter/gather speed
-    (~10 ns/elem), while the MXU runs the FULL dense product at
-    ~10²-10³ GFLOP/ms — so below a density-dependent crossover the
-    "wasteful" dense matmul wins outright (measured: 0.3 ms vs 6.6 ms
-    packed / 19.6 ms XLA pairs at n=2048, d=0.01).  Same stance as the
-    reference's dense-vs-sparse race (blas_test.cc:41) and this
-    framework's densify SpMM path.  Returns a ``Dense`` container
-    (extract a sparse pattern with ``spgemm_extract``).
+    program moves several bytes per multiply-add through gathers and a
+    scatter, while the dense product runs at matmul rate — so above a
+    density-dependent crossover the "wasteful" dense matmul wins outright.
+    Same stance as the reference's dense-vs-sparse race
+    (blas_test.cc:41) and this framework's densify SpMM path.  Returns a
+    ``Dense`` container (extract a sparse pattern with
+    ``spgemm_extract``).
     """
     from ..formats import Dense
 
     ad = A.todense() if not isinstance(A, Dense) else A.data
     bd = B.todense() if not isinstance(B, Dense) else B.data
-    prec = (jax.lax.Precision.HIGHEST
-            if ad.dtype == jnp.float32 else jax.lax.Precision.DEFAULT)
-    cd = jnp.dot(ad, bd, precision=prec)
+    cd = jnp.dot(ad, bd, precision=matmul_precision(ad.dtype))
     return Dense(data=cd, shape=(ad.shape[0], bd.shape[1]),
                  nnz=cd.shape[0] * cd.shape[1])
 
@@ -237,8 +219,8 @@ def spgemm_densify(A, B):
 def spgemm_extract(plan: SpGEMMPlan, dense) -> CSR:
     """Gather a dense product down to the plan's C pattern (jittable).
 
-    One 2-D gather per stored slot (~10 ns/elem) — only worth it when a
-    sparse C container is required downstream; otherwise keep the Dense.
+    One 2-D gather per stored slot — only worth it when a sparse C
+    container is required downstream; otherwise keep the Dense.
     """
     from ..formats import Dense
 
@@ -255,388 +237,4 @@ def spgemm_extract(plan: SpGEMMPlan, dense) -> CSR:
         row_ids=plan.c_row_ids,
         shape=plan.shape,
         nnz=plan.c_nnz,
-    )
-
-
-# ---------------------------------------------------------------------------
-# Packed numeric phase: the pair program IS a sparse matrix.
-#
-# C.data[slot] = Σ_p a_data[pa[p]] · b_data[pb[p]]  ⇔  C.data = P @ b_data
-# where P is (c_nnz × b_cap) sparse with value a_data[pa] at position
-# (target, pb).  So the numeric phase is exactly an SpMV — and the
-# row-lane Pallas kernel runs it at 25–49 Gnnz/s where the XLA
-# gather-multiply-scatter formulation measures 0.04 (500–1000×).
-# Build P once per (pattern, A-values); reuse for any B values.
-#
-# Fill rescue (``cluster=True``): raw P has ~k_matches scattered references
-# per row, so the row-lane packer's fill collapses (measured 0.01 at
-# n=2048, d=0.01).  But P has exploitable structure: the pairs hitting
-# output slot (i, j) reference only column j of B, so ordering P's rows by
-# C's column (CSC of C) and P's columns by B's column (CSC of B) makes P
-# block-diagonal — block j is A's pattern restricted to rows {C[:,j]≠0} ×
-# cols {B[:,j]≠0}.  Striping each block's few columns across the 8 sublane
-# chunks of a window (u = rank % 8) then spreads every P-row's references
-# across sublanes, so row-lane collision depth drops from ~k_matches to
-# ~1-2.  The permutations are absorbed at apply time by one b_cap scatter
-# (in) and one c_nnz scatter (out) — both trivially bandwidth-bound.
-# ---------------------------------------------------------------------------
-
-
-@register_sparse_pytree
-@dataclasses.dataclass(frozen=True)
-class SpGEMMPacked:
-    """Pair program packed as a row-lane SpMV over b_data."""
-
-    p_packed: object  # SellRowLane of P (c_slots × b_cap)
-    c_indptr: jnp.ndarray
-    c_indices: jnp.ndarray
-    c_row_ids: jnp.ndarray
-    # clustering permutations, stored as GATHER indices (XLA TPU scatters
-    # serialize at ~6 ns/elem — measured 4.6 ms for the 780k output
-    # permutation — while gathers run at bandwidth; identity when None)
-    b_gather: object  # (p_cols,) int32: B.data index feeding x[q], or None
-    c_gather: object  # (cap,) int32: kernel-output index of C.data[i], or None
-    # C^T structure (clustered plans only): the kernel output is already in
-    # CSC-of-C == CSR-of-C^T order, so a CSC result costs no permutation
-    ct_indptr: object
-    ct_indices: object
-    ct_row_ids: object
-    shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
-    c_nnz: int = dataclasses.field(metadata={"static": True})
-    # planned sort-network permutations (ops/permute.py): the same maps
-    # as b_gather/c_gather but applied via lax.sort_key_val — measured
-    # 4.5× the arbitrary gather at 4.2 M elements (probe_permute.py);
-    # None on pre-existing plans (apply falls back to the gathers)
-    b_perm: object = None
-    c_perm: object = None
-
-
-def _color_b_ranks_native(row_of: np.ndarray, q: np.ndarray, n_ranks: int):
-    """ctypes call into smtpu_color_ranks; None when unavailable."""
-    from .. import native as native_mod
-
-    lib = native_mod.get_lib()
-    if (lib is None or not hasattr(lib, "smtpu_color_ranks")
-            or n_ranks >= 2**31 or len(q) >= 2**31):
-        return None
-    import ctypes
-
-    q32 = np.ascontiguousarray(q, np.int32)
-    r32 = np.ascontiguousarray(row_of, np.int32)
-    alloc = np.zeros(n_ranks, np.int64)
-    n_rows = int(row_of.max()) + 1 if len(row_of) else 1
-    rc = lib.smtpu_color_ranks(
-        q32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        r32.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        len(q32), n_ranks, n_rows,
-        alloc.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-    if rc != 0:
-        return None
-    return alloc
-
-
-def _color_b_ranks(row_of: np.ndarray, q: np.ndarray, n_ranks: int):
-    """Assign each B-entry rank a (sublane, slot) inside its 1024-rank
-    window so that every P-row's references within a window land on
-    DISTINCT sublanes — a greedy capacity-respecting 8-coloring of the
-    per-window rank-conflict graph (ranks conflict iff some output slot
-    references both).
-
-    The naive ``rank % 8`` striping leaves ~2 collisions per tile and the
-    packer must open a second slab for every (tile, window); coloring
-    reaches the structural bound of ONE slab per nonempty (tile, window)
-    (measured n=2048 d=0.01: 10 412 → 6 255 slabs, fill 0.081 → 0.134,
-    vs a lower bound of 6 221).  Returns ``alloc``: the window-relative
-    position ``w*1024 + color*128 + slot`` per rank.
-
-    Native C++ fast path (native/codec.cc: smtpu_color_ranks,
-    bit-identical greedy) with this numpy/python fallback.
-    """
-    native_alloc = _color_b_ranks_native(row_of, q, n_ranks)
-    if native_alloc is not None:
-        return native_alloc
-    if n_ranks > 200_000:
-        # the python fallback is an interpreted per-rank loop (~25 µs/rank);
-        # without the native lib, large plans keep the vectorized stripe
-        return None
-    order = np.argsort(q, kind="stable")
-    q_s, row_s = q[order], row_of[order]
-    starts = np.searchsorted(q_s, np.arange(n_ranks))
-    ends = np.searchsorted(q_s, np.arange(n_ranks) + 1)
-    n_rows = int(row_of.max()) + 1 if len(row_of) else 1
-    used = np.zeros(n_rows, np.uint16)  # per-row color bitmask (this window)
-    stamp = np.full(n_rows, -1, np.int64)
-    capc = np.zeros(8, np.int64)
-    color = np.zeros(n_ranks, np.int8)
-    slot_in = np.zeros(n_ranks, np.int64)
-    cur_w = -1
-    for qq in range(n_ranks):
-        w = qq >> 10
-        if w != cur_w:
-            cur_w = w
-            capc[:] = 0
-        rows = row_s[starts[qq]:ends[qq]]
-        if len(rows):
-            fresh = stamp[rows] != w
-            if fresh.any():
-                used[rows[fresh]] = 0
-            stamp[rows] = w
-            forbid = int(np.bitwise_or.reduce(used[rows]))
-        else:
-            forbid = 0
-        best, bestload = 0, 1 << 30
-        for c in range(8):
-            if capc[c] >= 128:
-                continue
-            load = capc[c] + (100000 if (forbid >> c) & 1 else 0)
-            if load < bestload:
-                best, bestload = c, load
-        color[qq] = best
-        slot_in[qq] = capc[best]
-        capc[best] += 1
-        if len(rows):
-            used[rows] |= np.uint16(1 << best)
-    return ((np.arange(n_ranks) // 1024) * 1024
-            + color.astype(np.int64) * 128 + slot_in)
-
-
-def spgemm_plan_packed(A: CSR, B: CSR, cluster: bool = True,
-                       layout: str = "auto", stripe: str = "color",
-                       permute: str = "auto",
-                       outputs: tuple = ("csr", "csc"),
-                       **pack_kwargs) -> SpGEMMPacked:
-    """Symbolic phase + pack: fixes A's pattern AND values (and B's
-    pattern); ``spgemm_apply_packed`` then multiplies any B values.
-
-    ``cluster`` reorders P into its CSC-of-C × CSC-of-B block-diagonal
-    form with sublane-striped block columns (see module comment) — the
-    same program at ~30× the slab fill of the raw ordering.
-
-    ``layout``: ``"superblock"`` packs P for the superblock kernel (one
-    grid step batches slabs of 16 output tiles — clustered pair programs
-    average ~1.7 slabs/tile, so the per-tile rowlane kernel degenerates
-    to one ~0.5 µs grid step per slab and the measured numeric phase was
-    ~95 % grid-step overhead); ``"dualgather"`` packs P for the
-    dual-gather superblock kernel — measured a NEGATIVE at the XL pair
-    program (fill 0.016 vs superblock 0.110: pair matrices carry ~1
-    entry per (row, window), so dual-gather's 8 chunk-sublanes per slab
-    are ~7× waste; the option stays for patterns with denser windows);
-    ``"rowlane"`` forces the per-tile kernel; ``"auto"`` = superblock
-    when clustering (scattered-by-construction), rowlane otherwise.
-    """
-    import scipy.sparse as sps
-
-    if permute not in ("auto", "sort", "gather", "clos"):
-        raise ValueError(f"unknown permute {permute!r}")
-    force_sort = {"auto": None, "sort": True, "gather": False,
-                  "clos": None}[permute]
-
-    def _plan_perm(gmap, n_src):
-        if permute == "auto":
-            # Clos-routed planes are the measured-fastest applies at
-            # every supported size (13-29x the sort, probe_permute_clos:
-            # 21.8 us at 300k, 880 us at 8.4M vs 0.39/11.6 ms sort);
-            # plan cost ~1 s/M elements, the encode-once stance
-            from .permute import plan_permutation_auto
-
-            return plan_permutation_auto(gmap, n_src=n_src)
-        if permute == "clos":
-            from .permute_clos import plan_clos_permutation
-
-            p = plan_clos_permutation(gmap, n_src=n_src)
-            if p is not None:
-                return p
-        return plan_gather_permutation(gmap, n_src=n_src,
-                                       force_sort=force_sort)
-    plan = spgemm_plan(A, B)
-    pa = np.asarray(plan.pa)[: plan.n_pairs]
-    pb = np.asarray(plan.pb)[: plan.n_pairs]
-    tgt = np.asarray(plan.target)[: plan.n_pairs]
-    a_host = np.asarray(A.data)
-    b_cap = int(B.capacity)
-    b_gather = None
-    c_gather = None
-    b_perm = c_perm = None
-    ct_indptr = ct_indices = ct_row_ids = None
-    p_rows = max(plan.c_nnz, 1)
-    p_cols = b_cap
-    row_of = tgt
-    col_of = pb
-    if stripe not in ("color", "mod"):
-        raise ValueError(f"unknown stripe {stripe!r}")
-    if cluster and plan.c_nnz and plan.n_pairs:
-        # columns: CSC rank of each stored B entry
-        sb = B.to_scipy().tocsr()
-        sb.sort_indices()
-        b_row = np.repeat(np.arange(sb.shape[0]), np.diff(sb.indptr))
-        b_key = sb.indices.astype(np.int64) * sb.shape[0] + b_row
-        rank = np.empty(len(b_key), np.int64)
-        rank[np.argsort(b_key, kind="stable")] = np.arange(len(b_key))
-        # rows: C slots in CSC order (group P-rows by the block they hit)
-        c_rows = np.asarray(plan.c_row_ids)[: plan.c_nnz].astype(np.int64)
-        c_cols = np.asarray(plan.c_indices)[: plan.c_nnz].astype(np.int64)
-        order_r = np.argsort(c_cols * plan.shape[0] + c_rows, kind="stable")
-        rank_r = np.empty(plan.c_nnz, np.int64)
-        rank_r[order_r] = np.arange(plan.c_nnz)
-        # C.data[i] = y[rank_r[i]] — a gather, padded with a sentinel
-        cap = int(plan.c_indices.shape[0])
-        cg = np.full(cap, max(plan.c_nnz, 1), np.int64)
-        cg[: plan.c_nnz] = rank_r
-        c_gather = jnp.asarray(cg, jnp.int32)
-        # the CSC apply emits the kernel's native order — a csc-only
-        # plan skips the c_nnz output-permutation planning entirely
-        # (~16 s of Clos coloring at the XL point)
-        c_perm = (_plan_perm(cg, max(plan.c_nnz, 1))
-                  if "csr" in outputs else None)
-        row_of = rank_r[tgt]
-        # sublane position of each rank within its 1024-rank window:
-        # conflict-graph coloring (one slab per (tile, window)), or the
-        # legacy round-robin stripe
-        alloc_r = (_color_b_ranks(row_of, rank[pb], len(b_key))
-                   if stripe == "color" else None)
-        if alloc_r is not None:
-            # _color_b_ranks is rank-indexed; re-index by entry id
-            alloc = alloc_r[rank]
-        else:
-            qq = rank % 1024
-            alloc = (rank // 1024) * 1024 + (qq % 8) * 128 + qq // 8
-        p_cols = int(-(-len(b_key) // 1024)) * 1024
-        # inverse map as a gather: x[q] = b_data[src[q]], sentinel b_cap → 0
-        src = np.full(p_cols, b_cap, np.int64)
-        src[alloc] = np.arange(len(b_key))
-        b_gather = jnp.asarray(src, jnp.int32)
-        b_perm = _plan_perm(src, b_cap)
-        col_of = alloc[pb]
-        # C^T CSR structure over the CSC-ordered slots
-        idt = default_index_dtype
-        ct_counts = np.bincount(c_cols, minlength=plan.shape[1])
-        ct_indptr = jnp.asarray(
-            np.concatenate([[0], np.cumsum(ct_counts)]), idt)
-        ct_indices = jnp.asarray(c_rows[order_r], idt)
-        ct_row_ids = jnp.asarray(c_cols[order_r], idt)
-    P = sps.coo_matrix(
-        (a_host[pa], (row_of, col_of)), shape=(p_rows, p_cols)
-    ).tocsr()
-    if layout not in ("auto", "superblock", "rowlane", "dualgather",
-                      "octet"):
-        raise ValueError(f"unknown layout {layout!r}")
-    if layout == "octet" or (layout == "auto" and cluster
-                             and plan.n_pairs <= 2 * p_rows):
-        # ~1 pair per C slot: the octet layout packs 8 tiles per slab
-        # (fill 0.47 vs 0.11 at the XL point — the superblock wastes 7/8
-        # sublane cells when rows carry one entry)
-        from ..kernels.spmv_octet import pack_octet
-
-        pk = dict(pack_kwargs)
-        pk.setdefault("group", 32)
-        pk.setdefault("k_octets", 64)
-        packed = pack_octet(CSR.from_scipy(P), **pk)
-    elif layout == "dualgather":
-        from ..kernels.spmv_dualgather import pack_dualgather
-
-        pk = dict(pack_kwargs)
-        pk.setdefault("k_tiles", 32)
-        pk.setdefault("group", 256)
-        packed = pack_dualgather(CSR.from_scipy(P), **pk)
-    elif layout == "superblock" or (layout == "auto" and cluster):
-        from ..kernels.spmv_superblock import pack_superblock
-
-        packed = pack_superblock(CSR.from_scipy(P), **pack_kwargs)
-    else:
-        from ..kernels.spmv_rowlane import pack_sell_rowlane
-
-        packed = pack_sell_rowlane(CSR.from_scipy(P), **pack_kwargs)
-    return SpGEMMPacked(
-        p_packed=packed,
-        c_indptr=plan.c_indptr,
-        c_indices=plan.c_indices,
-        c_row_ids=plan.c_row_ids,
-        b_gather=b_gather,
-        c_gather=c_gather,
-        ct_indptr=ct_indptr,
-        ct_indices=ct_indices,
-        ct_row_ids=ct_row_ids,
-        shape=plan.shape,
-        c_nnz=plan.c_nnz,
-        b_perm=b_perm,
-        c_perm=c_perm,
-    )
-
-
-def _p_spmv(p_packed, x):
-    """Dispatch the pair-program SpMV to the layout it was packed for."""
-    from ..kernels.spmv_octet import Octet, spmv_octet
-    from ..kernels.spmv_superblock import SellSuperblock, spmv_superblock
-
-    if isinstance(p_packed, Octet):
-        return spmv_octet(p_packed, x)
-    if isinstance(p_packed, SellSuperblock):
-        return spmv_superblock(p_packed, x)
-    from ..kernels.spmv_dualgather import DualGather, spmv_dualgather
-
-    if isinstance(p_packed, DualGather):
-        return spmv_dualgather(p_packed, x)
-    from ..kernels.spmv_rowlane import spmv_sell_rowlane
-
-    return spmv_sell_rowlane(p_packed, x)
-
-
-def spgemm_apply_packed(pp: SpGEMMPacked, b_data) -> CSR:
-    """Numeric phase on the Pallas SpMV path (jittable, differentiable
-    in ``b_data`` through the kernel's custom VJP)."""
-    x = b_data
-    if pp.b_perm is not None:
-        # permute B values into the clustered column layout via the
-        # planned sort (4.5× the arbitrary gather at XL sizes)
-        x = apply_permutation(pp.b_perm, b_data)
-    elif pp.b_gather is not None:
-        x = jnp.concatenate([b_data, jnp.zeros((1,), b_data.dtype)]
-                            )[pp.b_gather]
-    y = _p_spmv(pp.p_packed, x)
-    cap = pp.c_indices.shape[0]
-    if pp.c_perm is not None:
-        c_data = apply_permutation(pp.c_perm, y)
-    elif pp.c_gather is not None:
-        ypad = jnp.concatenate([y, jnp.zeros((1,), y.dtype)])
-        c_data = ypad[pp.c_gather]
-    else:
-        c_data = jnp.zeros((cap,), y.dtype).at[: pp.c_nnz].set(
-            y[: pp.c_nnz])
-    return CSR(
-        indptr=pp.c_indptr,
-        indices=pp.c_indices,
-        data=c_data,
-        row_ids=pp.c_row_ids,
-        shape=pp.shape,
-        nnz=pp.c_nnz,
-    )
-
-
-def spgemm_apply_packed_csc(pp: SpGEMMPacked, b_data) -> CSR:
-    """Numeric phase emitting ``C^T`` as CSR (i.e. C in CSC — the
-    ``CopyTo(trans)`` analogue, /root/reference/src/sparse/sparse-matrix.cc:124).
-
-    Clustered plans order the kernel output by C's column already, so the
-    CSC result skips the output permutation entirely (jittable,
-    differentiable in ``b_data``).
-    """
-    if pp.ct_indptr is None:
-        raise ValueError(
-            "CSC output needs a clustered plan "
-            "(spgemm_plan_packed(..., cluster=True))")
-    if pp.b_perm is not None:
-        x = apply_permutation(pp.b_perm, b_data)
-    else:
-        x = jnp.concatenate([b_data, jnp.zeros((1,), b_data.dtype)]
-                            )[pp.b_gather]
-    y = _p_spmv(pp.p_packed, x)
-    cap = pp.ct_indices.shape[0]
-    c_data = jnp.zeros((cap,), y.dtype).at[: pp.c_nnz].set(y[: pp.c_nnz])
-    return CSR(
-        indptr=pp.ct_indptr,
-        indices=pp.ct_indices,
-        data=c_data,
-        row_ids=pp.ct_row_ids,
-        shape=(pp.shape[1], pp.shape[0]),
-        nnz=pp.c_nnz,
     )

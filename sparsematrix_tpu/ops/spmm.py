@@ -1,33 +1,21 @@
 """SpMM: ``Y = A_sparse @ X_dense`` (multi-vector RHS, k = X.shape[1]).
 
 The reference's single math op is the mirror case ``C = A_dense @ B_sparse``
-(AddMatMat, /root/reference/src/sparse/sparse-matrix.cc:140-194) — provided
-here as ``spmm_right`` / ``ops.addmatmat``.  Per-format jnp references below;
-Pallas MXU paths live in ``kernels/``.
+(AddMatMat, reference src/sparse/sparse-matrix.cc:140-194) — provided
+here as ``spmm_right`` / ``ops.addmatmat``.  One ``jax.numpy``
+implementation per format, compiled by XLA; ``spmm`` routes between them
+and the densify path from properties of the input.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..config import config
 from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
                        CodebookDense, Dense, QuantDense, StripDense)
+from ..utils.precision import matmul_precision
 
 __all__ = ["spmm", "spmm_reference", "spmm_right"]
-
-
-def _mxu_precision(dtype):
-    """v5e MXU truncates fp32 to bf16 at default precision; fp32 data gets
-    the multi-pass HIGHEST path for fp32-grade accuracy."""
-    import jax
-
-    return (
-        jax.lax.Precision.HIGHEST
-        if dtype == jnp.float32
-        else jax.lax.Precision.DEFAULT
-    )
-
 
 
 def _spmm_csr_jnp(A: CSR, X):
@@ -45,7 +33,7 @@ def _spmm_coo_jnp(A: COO, X):
 def _spmm_ell_jnp(A: ELL, X):
     gathered = X[A.cols]  # (rows, R, k)
     return jnp.einsum("rn,rnk->rk", A.data, gathered,
-                      precision=_mxu_precision(A.data.dtype))
+                      precision=matmul_precision(A.data.dtype))
 
 
 def _spmm_bsr_jnp(A: BSR, X):
@@ -57,7 +45,7 @@ def _spmm_bsr_jnp(A: BSR, X):
     Xb = Xp.reshape(nbc, bn, k)
     gathered = Xb[A.indices]  # (cap, bn, k)
     prod = jnp.einsum("cij,cjk->cik", A.data, gathered,
-                      precision=_mxu_precision(A.data.dtype))  # (cap, bm, k)
+                      precision=matmul_precision(A.data.dtype))  # (cap, bm, k)
     brow = (
         A.block_row_ids
         if A.block_row_ids is not None
@@ -76,7 +64,7 @@ def _spmm_bell_jnp(A: BlockedELL, X):
     Xb = Xp.reshape(nbc, bk, k)
     gathered = Xb[A.block_cols]  # (nbr, M, bk, k)
     acc = jnp.einsum("rmij,rmjk->rik", A.blocks, gathered,
-                     precision=_mxu_precision(A.blocks.dtype))  # (nbr, bm, k)
+                     precision=matmul_precision(A.blocks.dtype))  # (nbr, bm, k)
     return acc.reshape(nbr * bm, k)[: A.shape[0]]
 
 
@@ -85,35 +73,30 @@ def _spmm_codebook_jnp(A: CodebookCSR, X):
 
 
 def _spmm_codebook_dense_jnp(A: CodebookDense, X):
-    # dequant (vectorized 256-entry LUT) straight into the MXU.  MEASURED
-    # (results_r2: dense-dequant 20.7 µs vs fused-pallas 48.6 µs at the
-    # reference shape, same ordering at 4×): XLA's fused gather+dot beats
-    # the hand-written pallas kernel, so this IS the fast path, not a
-    # fallback.  For non-fp32 RHS the table is cast FIRST so the
-    # materialized B plane is half-width (dominant HBM traffic,
-    # dense-dequant-bf16 9.7 µs — faster than the dense bf16 race).
+    # dequant (vectorized 256-entry LUT) straight into one dense dot; XLA
+    # fuses the table gather into the product's operand.  For non-fp32 RHS
+    # the table is cast FIRST so the materialized B plane is half-width.
     table = (A.val_table if X.dtype == jnp.float32
              else A.val_table.astype(X.dtype))
     B = table[A.idx.astype(jnp.int32)]
     return jnp.dot(B, X, preferred_element_type=X.dtype,
-                   precision=_mxu_precision(X.dtype))
+                   precision=matmul_precision(X.dtype))
 
 
 def _spmm_dense_jnp(A: Dense, X):
     if A.data.dtype == jnp.bfloat16 and X.dtype == jnp.float32:
-        # half-width A plane feeding the native bf16 systolic path;
+        # half-width A plane on the bf16 tensor-core path;
         # accumulate fp32 so only the input rounding (~1e-2 rel) remains
         return jnp.dot(A.data, X.astype(jnp.bfloat16),
                        preferred_element_type=jnp.float32)
     return jnp.dot(A.data, X, preferred_element_type=X.dtype,
-                   precision=_mxu_precision(A.data.dtype))
+                   precision=matmul_precision(A.data.dtype))
 
 
 def _spmm_quantdense_jnp(A: QuantDense, X):
-    # per-column symmetric quantization of X (two VPU passes), int8 MXU
+    # per-column symmetric quantization of X (two elementwise passes), int8
     # contraction with int32 accumulate, rank-1 rescale.  Mirrors the
-    # codebook int8-gemm path (the measured winner at the reference shape,
-    # BASELINE codebook_gemm/int8-gemm) for arbitrary-valued matrices.
+    # codebook int8-gemm path for arbitrary-valued matrices.
     colmax = jnp.max(jnp.abs(X), axis=0)
     t = jnp.where(colmax > 0, colmax / 127.0, 1.0).astype(jnp.float32)
     Xq = jnp.clip(jnp.round(X / t[None, :]), -127, 127).astype(jnp.int8)
@@ -123,19 +106,18 @@ def _spmm_quantdense_jnp(A: QuantDense, X):
 
 
 def _spmm_strip_jnp(A: StripDense, X):
-    # one RHS window SLICE per strip, then a single batched matmul that
-    # feeds the MXU full 128-row tiles.  vmapped dynamic_slice, NOT a
-    # fancy gather: X[first_col[:,None]+arange(width)] lowers to an
-    # element gather (~6.7 ns/el — measured 1.11 ms for the n=65536 k=8
-    # Poisson matmat, 18 % of HBM bw); the contiguous-slice form moves
-    # whole (width, k) blocks per index.  Windows are in-bounds by
-    # construction (from_csr clips first_col to cols-width).
+    # one RHS window SLICE per strip, then a single batched matmul over
+    # full 128-row strips.  vmapped dynamic_slice, NOT a fancy gather:
+    # X[first_col[:,None]+arange(width)] lowers to an element gather,
+    # while the contiguous-slice form moves whole (width, k) blocks per
+    # index.  Windows are in-bounds by construction (from_csr clips
+    # first_col to cols-width).
     k = X.shape[1]
     Xg = jax.vmap(
         lambda fc: jax.lax.dynamic_slice(X, (fc, 0), (A.width, k))
     )(A.first_col)  # (n_strips, width, k)
     Y = jnp.einsum("srw,swk->srk", A.strips, Xg,
-                   precision=_mxu_precision(A.strips.dtype))
+                   precision=matmul_precision(A.strips.dtype))
     return Y.reshape(-1, X.shape[1])[: A.shape[0]]
 
 
@@ -161,25 +143,19 @@ def spmm_reference(A, X):
 
 
 def spmm_densify(A, X, precision=None):
-    """Density-adaptive path: materialize A on-device (scatter) and run a
-    dense MXU matmul.  On TPU this is the *fastest* algorithm above a few
-    percent density — MXU FLOPs are so cheap that the reference's
-    stream-of-AXPYs algorithm (kernel.cc:771-800) loses to "densify + dense
-    GEMM" at its own 25%-density benchmark.  fp32 inputs default to
-    HIGHEST precision (multi-pass bf16 MXU) for fp32-grade accuracy.
+    """Density-adaptive path: materialize A on-device (scatter) and run
+    one dense matmul.  Above a few percent density the dense product beats
+    the reference's stream-of-AXPYs algorithm (kernel.cc:771-800).  fp32
+    inputs default to ``matmul_precision`` (true fp32, not TF32).
     """
     if precision is None:
-        precision = (
-            jax.lax.Precision.HIGHEST
-            if X.dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT
-        )
+        precision = matmul_precision(X.dtype)
     dense = A.todense()
     return jnp.dot(dense, X, preferred_element_type=X.dtype, precision=precision)
 
 
 # densify when at least this fraction of entries are stored and the dense
-# temporary stays small enough to be a footnote in HBM
+# temporary stays small enough to be a footnote in device memory
 _DENSIFY_MIN_DENSITY = 0.05
 _DENSIFY_MAX_ELEMS = 64 * 1024 * 1024
 
@@ -190,129 +166,54 @@ def _should_densify(A) -> bool:
     return size <= _DENSIFY_MAX_ELEMS and A.nnz >= _DENSIFY_MIN_DENSITY * size
 
 
-# CodebookCSR → CodebookDense conversion cache: the fused dequant+GEMM
-# kernel needs the dense index plane; converting once per container makes
-# the DEFAULT add_mat_mat/spmm path hit the fast kernel (8.7 ms → 73 µs
-# measured on the reference workload) with no caller-side prep.
+# Build-time conversions of concrete containers, cached per container
+# (keyed by identity, evicted by weakref when the container dies) so the
+# DEFAULT spmm/add_mat_mat path reaches the dense or strip form with no
+# caller-side prep.  Traced containers skip them (inside jit, build the
+# converted container ahead of time).
 import weakref
 
 _CBD_CACHE: dict = {}
-
-# multi-RHS walk packs: dual-gather k_tiles=1 (the round-3 layout at ~2x
-# the rowlane fill — spmm_dualgather walks it per column)
-_DG_CACHE: dict = {}
-
-
-def _dg_pack_of(A: CSR):
-    import jax.core
-
-    if isinstance(A.data, jax.core.Tracer):
-        return None
-    if A.nnz < 4096:
-        return None
-    key = id(A)
-    entry = _DG_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    from ..kernels.spmv_dualgather import pack_dualgather
-
-    with jax.ensure_compile_time_eval():
-        # Power-law guard, mirroring prepare_spmv's (ops/spmv.py): one
-        # hub row/column forces every (tile, window) it touches to its
-        # own slab depth — the hybrid skew layout dense-blocks the hubs
-        # and degree-sorts the rest (ops/skew.py; measured 28× on spmv,
-        # same fill collapse applies to every multi-RHS slab walk)
-        if A.shape[0] >= 4096 and A.nnz >= 65536:
-            from .skew import pack_skew, skew_stats
-
-            dmax, dmean, cmax = skew_stats(A)
-            cmean = max(A.nnz / max(A.shape[1], 1), 1e-9)
-            if (dmax >= max(32 * dmean, 512)
-                    or cmax >= max(32 * cmean, 512)):
-                packed = pack_skew(A)
-                ref = weakref.ref(
-                    A, lambda _u, k=key: _DG_CACHE.pop(k, None))
-                _DG_CACHE[key] = (ref, packed)
-                return packed
-        # Low mean degree (≲16/row): the sliced-ELL row-gather layout is
-        # the measured winner (0.24-0.38 ms vs the walk's 0.68-0.90 at
-        # the 2-8/row XL points, probe_spmm_lowdeg) — each gathered X
-        # row is a contiguous k-float run, and degree-sorted segments
-        # keep the width padding bounded.  The octet pack is NOT routed
-        # here — measured loser at the scattered low-degree point
-        # (1.61 ms fill 0.04: ~8 live cells per octet-window); spmv
-        # keeps its octet route (different traffic balance).
-        if A.nnz <= 16 * A.shape[0]:
-            from .spmm_lowdeg import pack_sliced_ell
-
-            packed = pack_sliced_ell(A)
-            ref = weakref.ref(A, lambda _u, k=key: _DG_CACHE.pop(k, None))
-            _DG_CACHE[key] = (ref, packed)
-            return packed
-        packed = pack_dualgather(A, k_tiles=1)
-    if packed.fill_rate < 0.05:
-        # a pathological pack (scattered low-degree rows) still beats the
-        # segsum reference ~anywhere, but below this floor the slab bytes
-        # explode 20×; keep the reference/densify routing instead.  Band-
-        # local and Poisson-like matrices pack at 0.5-0.9 regardless of
-        # nnz/row — the old `nnz < 8·rows` guard wrongly sent those to
-        # segsum (measured: the walk runs the 65k 5-point Laplacian k=8
-        # matmat in ≤31 µs).
-        packed = None
-    ref = weakref.ref(A, lambda _u, k=key: _DG_CACHE.pop(k, None))
-    _DG_CACHE[key] = (ref, packed)
-    return packed
-
-
 _STRIP_CACHE: dict = {}
-
-
-def _strip_of(A: CSR):
-    """Cached StripDense conversion for band-local CSR (same rule as the
-    spmv auto path's `_maybe_strip`: window cap 2048, strip fill ≥ 0.25).
-    The strip batched-MXU SpMM measured 42.8 Gnnz/s on the banded bench
-    vs ~7 G for the walk — band-local multi-RHS should never fall through
-    to the slab machinery.  Misses are cached too (the band scan is one
-    O(nnz) pass, but spmm may be called per step)."""
-    import jax.core
-
-    if isinstance(A.data, jax.core.Tracer):
-        return None
-    key = id(A)
-    entry = _STRIP_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    from .spmv import _maybe_strip
-
-    with jax.ensure_compile_time_eval():
-        S = _maybe_strip(A)
-    ref = weakref.ref(A, lambda _u, k=key: _STRIP_CACHE.pop(k, None))
-    _STRIP_CACHE[key] = (ref, S)
-    return S
-
-
 _BSR_DENSE_CACHE: dict = {}
 
 
-def _bsr_dense_of(A: BSR):
-    """Build-time Dense materialization of a small-block BSR (cached per
-    container).  A TRACED todense() would re-scatter on every call (~2 ms
-    at n=2048 — the round-3 silent-slow-default); caching the concrete
-    container makes the auto path a pure MXU contraction."""
+def _cached(cache: dict, A, build):
+    key = id(A)
+    entry = cache.get(key)
+    if entry is not None and entry[0]() is A:
+        return entry[1]
+    # the builders run jnp ops; evaluate eagerly even under an active jit
+    # trace (the container itself is concrete)
+    with jax.ensure_compile_time_eval():
+        out = build(A)
+    ref = weakref.ref(A, lambda _u, k=key: cache.pop(k, None))
+    cache[key] = (ref, out)
+    return out
+
+
+def _strip_of(A: CSR):
+    """Cached StripDense conversion for band-local CSR (the same rule as
+    ``prepare_spmv``'s auto layout).  Misses are cached too: the band scan
+    is one O(nnz) pass, but spmm may be called per step."""
     import jax.core
 
     if isinstance(A.data, jax.core.Tracer):
         return None
-    key = id(A)
-    entry = _BSR_DENSE_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    # todense is jnp; evaluate eagerly even under an active jit trace
-    with jax.ensure_compile_time_eval():
-        bd = Dense.from_sparse(A)
-    ref = weakref.ref(A, lambda _u, k=key: _BSR_DENSE_CACHE.pop(k, None))
-    _BSR_DENSE_CACHE[key] = (ref, bd)
-    return bd
+    from .spmv import _maybe_strip
+
+    return _cached(_STRIP_CACHE, A, _maybe_strip)
+
+
+def _bsr_dense_of(A: BSR):
+    """Cached Dense materialization of a small-block BSR.  A TRACED
+    todense() would re-scatter on every call; caching the concrete
+    container makes the auto path one dense contraction."""
+    import jax.core
+
+    if isinstance(A.data, jax.core.Tracer):
+        return None
+    return _cached(_BSR_DENSE_CACHE, A, Dense.from_sparse)
 
 
 def _codebook_dense_of(A: CodebookCSR):
@@ -322,135 +223,64 @@ def _codebook_dense_of(A: CodebookCSR):
         return None  # inside jit: build a CodebookDense ahead of time
     if A.shape[0] * A.shape[1] > _DENSIFY_MAX_ELEMS:
         return None  # index plane too large to materialize
-    key = id(A)
-    entry = _CBD_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    import numpy as np
 
-    rid = np.asarray(A.row_ids)[: A.nnz]
-    cid = np.asarray(A.indices)[: A.nnz]
-    vi = np.asarray(A.val_idx)[: A.nnz]
-    idxm = np.full(A.shape, A.table_size, np.int64)  # sentinel = zero
-    idxm[rid, cid] = vi
-    bd = CodebookDense.from_index_matrix(
-        idxm, np.asarray(A.val_table)[: A.table_size]
-    )
-    ref = weakref.ref(A, lambda _unused, k=key: _CBD_CACHE.pop(k, None))
-    _CBD_CACHE[key] = (ref, bd)
-    return bd
+    def build(A):
+        import numpy as np
+
+        rid = np.asarray(A.row_ids)[: A.nnz]
+        cid = np.asarray(A.indices)[: A.nnz]
+        vi = np.asarray(A.val_idx)[: A.nnz]
+        idxm = np.full(A.shape, A.table_size, np.int64)  # sentinel = zero
+        idxm[rid, cid] = vi
+        return CodebookDense.from_index_matrix(
+            idxm, np.asarray(A.val_table)[: A.table_size])
+
+    return _cached(_CBD_CACHE, A, build)
 
 
 def spmm(A, X, method: str = "auto"):
     """``Y = A @ X`` with sparse ``A`` and dense ``X``.
 
-    method: "auto" (density-adaptive), "sparse" (format kernels only), or
-    "densify" (force the dense MXU path).
+    method: "auto" (density-adaptive), "sparse" (the format's own
+    implementation), or "densify" (force the dense matmul path).
     """
     if X.ndim != 2 or X.shape[0] != A.shape[1]:
         raise ValueError(
             f"spmm: X shape {X.shape} incompatible with matrix {A.shape}"
         )
-    from ..kernels.spmm_dualgather import spmm_dualgather as _dg_mm
-    from ..kernels.spmv_dualgather import DualGather as _DG
-    from ..kernels.spmv_octet import Octet as _Oct, spmm_octet as _oct_mm
-    from .skew import SkewSpmv as _Skew, spmm_skew
-    from .spmm_lowdeg import SlicedEllMM as _SEll, spmm_sliced_ell
+    if method not in ("auto", "sparse", "densify"):
+        raise ValueError(f"unknown method {method!r}")
+    from .spmm_lowdeg import SlicedEllMM, spmm_sliced_ell
 
-    if isinstance(A, _Skew):
-        return spmm_skew(A, X)
-    if isinstance(A, _DG):
-        return _dg_mm(A, X)  # packed layouts serve spmv AND spmm
-    if isinstance(A, _Oct):
-        return _oct_mm(A, X)
-    if isinstance(A, _SEll):
+    if isinstance(A, SlicedEllMM):
         return spmm_sliced_ell(A, X)
     if method == "densify":
         return spmm_densify(A, X)
-    if type(A) in (Dense, QuantDense):
+    if type(A) in (Dense, QuantDense) or method != "auto":
         # already-materialized containers: their jnp impl IS the fast path
-        # (bf16 plane / int8 MXU contraction) — never re-densify
+        # (bf16 plane / int8 contraction) — never re-densify
         return spmm_reference(A, X)
-    if method == "auto" and type(A) is BSR and _should_densify(A):
-        # small-block BSR underutilizes the MXU on every sparse path
-        # (measured: grouped 0.98 Gnnz/s, panel 0.28 at (8,8) blocks);
-        # at densify-eligible density the dense MXU contraction wins ~10x,
-        # so auto reroutes BEFORE the format kernel gets a say.  MXU-sized
-        # blocks ((128,128)+) keep the grouped kernel: each stored block
-        # is already a full systolic tile.  The BSR-native Pallas kernels
-        # remain available via method="sparse" but are DEPRECATED as a
-        # default (measured losers at every small-block point, BASELINE
-        # bsr rows).
+    if type(A) is BSR and _should_densify(A):
+        # small blocks make tiny batched products; at densify-eligible
+        # density one dense contraction does the work in a single call.
+        # Large blocks ((64,64)+) keep the batched block product.
         bm, bn = A.block_shape
         if bm * bn < 4096:
             bd = _bsr_dense_of(A)
             if bd is not None:  # build-time materialization, cached
                 return spmm_reference(bd, X)
             return spmm_densify(A, X)
-    if method != "jnp" and config.use_pallas():
-        impl = _pallas_impl(type(A))
-        if impl is not None:
-            return impl(A, X)
-        if method == "auto" and type(A) is CodebookCSR:
-            bd = _codebook_dense_of(A)
-            if bd is not None:
-                return spmm(bd, X)  # fused dequant+GEMM kernel
-        if method == "auto" and type(A) is CSR and not _should_densify(A):
-            # band-local CSR: strip batched-MXU SpMM (42.8 G vs ~7 G walk)
-            S = _strip_of(A)
-            if S is not None:
-                return _spmm_strip_jnp(S, X)
-        if (method == "auto" and type(A) is CSR and not _should_densify(A)
-                and X.shape[1] <= 64):
-            # low-density multi-RHS gap: walk the dual-gather slab layout
-            # once per column (pack cached per matrix object)
-            from ..kernels.spmm_dualgather import spmm_dualgather
-
-            packed = _dg_pack_of(A)
-            if isinstance(packed, _Skew):
-                return spmm_skew(packed, X)
-            if isinstance(packed, _SEll):
-                return spmm_sliced_ell(packed, X)
-            if packed is not None:
-                return spmm_dualgather(packed, X)
-    if method == "auto" and _should_densify(A):
+    if type(A) is CodebookCSR:
+        bd = _codebook_dense_of(A)
+        if bd is not None:
+            return _spmm_codebook_dense_jnp(bd, X)  # dequant + dense dot
+    if type(A) is CSR and not _should_densify(A):
+        S = _strip_of(A)
+        if S is not None:  # band-local: one batched strip product
+            return _spmm_strip_jnp(S, X)
+    if _should_densify(A):
         return spmm_densify(A, X)
     return spmm_reference(A, X)
-
-
-def _pallas_impl(cls):
-    from ..kernels import bsr_pallas, spmm_pallas
-
-    impl = spmm_pallas.PALLAS_IMPLS.get(cls) or bsr_pallas.PALLAS_IMPLS.get(cls)
-    if impl is None and cls is CodebookDense:
-        # the XLA fused dequant+dot is the measured winner over the hand
-        # kernel (results_r2 codebook_gemm rows; the pallas kernel stays
-        # available as kernels.codebook_pallas.codebook_matmul)
-        impl = _spmm_codebook_dense_jnp
-    if cls is BSR:
-        raw = impl
-
-        def bsr_dispatch(A, X):
-            # small blocks underutilize the MXU in the per-block grid
-            # (measured: (8,8) blocks → 0.5 Gnnz/s pallas vs jnp batched
-            # einsum ~4x faster); the grouped-matmul kernel pays off only
-            # for MXU-sized blocks.  Concrete small-block containers take
-            # the PANEL layout instead (one wide dot per block-row,
-            # encode-once cached) — the fast path spmm_bsr selects
-            # internally.
-            bm, bn = A.block_shape
-            if bm * bn >= 4096:
-                return raw(A, X)
-            if bn % 8 == 0:
-                from ..kernels.bsr_pallas import _panels_for
-
-                packed = _panels_for(A)
-                if packed is not None and packed.bcols.shape[1] <= 64:
-                    return raw(A, X)
-            return _spmm_bsr_jnp(A, X)
-
-        impl = bsr_dispatch
-    return impl
 
 
 def spmm_right(X, A_transposed):
@@ -460,7 +290,7 @@ def spmm_right(X, A_transposed):
     ``A_transposed`` must be the sparse storage of ``A^T`` (shape n×k for a
     logical k×n ``A``), prepared at *build* time — exactly as the reference
     encodes B with ``SblasTrans`` at encode time so the multiply never
-    transposes sparse data (/root/reference/src/test/blas_test.h:145,
+    transposes sparse data (reference src/test/blas_test.h:145,
     sparse-matrix.cc:65-98).  Jit-safe: no host-side work here.
     """
     return spmm(A_transposed, X.T).T

@@ -1,34 +1,30 @@
-"""Sliced-ELL row-gather SpMM — the low-degree multi-RHS layout.
+"""Sliced-ELL row-gather SpMM — a low-degree multi-RHS layout.
 
-At ≲8 entries/row the slab walks are VPU-bound on near-empty slabs
-(kt1 fill 0.01 at the 2/row XL point → 0.68-0.90 ms), while the direct
-row-gather formulation
+At ≲8 entries/row the direct row-gather formulation
 
     y[r] = Σ_j vals[r, j] · X[cols[r, j], :]
 
-moves each gathered X row as a contiguous 128-byte run (k=32 fp32) —
-measured 0.240 ms at width 2 (n=32768, k=32).  Plain ELL dies on width
-padding (Poisson(2) → width 11 → 1.80 ms), so rows are DEGREE-SORTED
-and split into segments whose widths track their own max degree
-(SELL-C-σ with σ = all rows, segment boundaries where padding would
-exceed ~1/3); one einsum per segment, and the output is restored by a
-contiguous ROW gather — the same cheap op the layout is built on.
+moves each gathered X row as one contiguous k-element run.  Plain ELL
+pays for width padding (Poisson(2) degrees pad to width ~11), so rows
+are DEGREE-SORTED and split into segments whose widths track their own
+max degree (SELL-C-σ with σ = all rows, segment boundaries where padding
+would exceed ~1/3); one einsum per segment, and the output is restored
+by a contiguous ROW gather — the same cheap op the layout is built on.
 
-No reference analogue (the reference is single-format); the TPU cousin
-of the classic sliced-ELL layout, built for the SURVEY §7 multi-RHS
-regime map.
+No reference analogue (the reference is single-format).  An explicit
+pack: ``spmm`` runs a ``SlicedEllMM`` it is given.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..formats import CSR
 from ..formats.base import register_sparse_pytree
+from ..utils.precision import matmul_precision
 
 __all__ = ["SlicedEllMM", "pack_sliced_ell", "spmm_sliced_ell"]
 
@@ -114,6 +110,6 @@ def spmm_sliced_ell(packed: SlicedEllMM, X):
     for v, c in zip(packed.vals, packed.cols):
         gathered = Xp[c]  # (nb, w, k) — contiguous k-float row runs
         parts.append(jnp.einsum("rw,rwk->rk", v, gathered,
-                                precision=jax.lax.Precision.HIGHEST))
+                                precision=matmul_precision(v.dtype)))
     y_sorted = jnp.concatenate(parts, axis=0)  # (rows, k) in degree order
     return y_sorted[packed.out_rows]

@@ -1,42 +1,21 @@
 """SpMV: ``y = A @ x`` for every sparse format.
 
-Each format gets a pure-jnp reference implementation (the ``_naive`` analogue
-of the reference, /root/reference/src/sparse/kernel.cc:322-338, used both as
-oracle and CPU fallback) and, where profitable, a Pallas fast path selected
-by ``config``.
-
-The reference's per-nonzero scalar accumulation is replaced by vectorized
-gathers + ``segment_sum`` (CSR/COO) or 2-D gather/reduce (ELL) or block
-matvecs (BSR/BlockedELL) — the idiomatic XLA/TPU formulations.
+Each format has one ``jax.numpy`` implementation (the ``_naive`` analogue
+of the reference, reference src/sparse/kernel.cc:322-338), compiled
+by XLA: vectorized gathers + ``segment_sum`` (CSR/COO), a 2-D
+gather/reduce (ELL), or batched block matvecs (BSR/BlockedELL/strips).
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-from ..config import config
 from ..formats import (BSR, COO, CSR, ELL, BlockedELL, CodebookCSR,
                        CodebookDense, Dense, QuantDense, StripDense)
+from ..utils.precision import matmul_precision
 
 __all__ = ["spmv", "spmv_reference", "prepare_spmv"]
 
-
-def _mxu_precision(dtype):
-    """v5e MXU truncates fp32 to bf16 at default precision; fp32 data gets
-    the multi-pass HIGHEST path for fp32-grade accuracy."""
-    import jax
-
-    return (
-        jax.lax.Precision.HIGHEST
-        if dtype == jnp.float32
-        else jax.lax.Precision.DEFAULT
-    )
-
-
-
-# ---------------------------------------------------------------------------
-# jnp reference implementations
-# ---------------------------------------------------------------------------
 
 def _spmv_csr_jnp(A: CSR, x):
     rid = A._row_ids_or_compute()
@@ -64,7 +43,7 @@ def _spmv_bsr_jnp(A: BSR, x):
     gathered = xb[A.indices]  # (block_capacity, bn)
     # block matvec on each stored block: (cap, bm, bn) @ (cap, bn) -> (cap, bm)
     prod = jnp.einsum("kij,kj->ki", A.data, gathered,
-                      precision=_mxu_precision(A.data.dtype))
+                      precision=matmul_precision(A.data.dtype))
     brow = (
         A.block_row_ids
         if A.block_row_ids is not None
@@ -82,7 +61,7 @@ def _spmv_bell_jnp(A: BlockedELL, x):
     xb = xp.reshape(nbc, bk)
     gathered = xb[A.block_cols]  # (nbr, M, bk) — padded blocks are zero-valued
     acc = jnp.einsum("rmij,rmj->ri", A.blocks, gathered,
-                     precision=_mxu_precision(A.blocks.dtype))  # (nbr, bm)
+                     precision=matmul_precision(A.blocks.dtype))  # (nbr, bm)
     return acc.reshape(nbr * bm)[: A.shape[0]]
 
 
@@ -96,14 +75,14 @@ def _spmv_codebook_dense_jnp(A: CodebookDense, x):
     table = (A.val_table if x.dtype == jnp.float32
              else A.val_table.astype(x.dtype))
     return jnp.dot(table[A.idx.astype(jnp.int32)], x,
-                   precision=_mxu_precision(x.dtype))
+                   precision=matmul_precision(x.dtype))
 
 
 def _spmv_dense_jnp(A: Dense, x):
     if A.data.dtype == jnp.bfloat16 and x.dtype == jnp.float32:
         return jnp.dot(A.data, x.astype(jnp.bfloat16),
                        preferred_element_type=jnp.float32)
-    return jnp.dot(A.data, x, precision=_mxu_precision(A.data.dtype))
+    return jnp.dot(A.data, x, precision=matmul_precision(A.data.dtype))
 
 
 def _spmv_quantdense_jnp(A: QuantDense, x):
@@ -113,15 +92,14 @@ def _spmv_quantdense_jnp(A: QuantDense, x):
 
 
 def _spmv_strip_jnp(A: StripDense, x):
-    # per-strip window SLICE + batched matvec (MXU path).  vmapped
-    # dynamic_slice, not a fancy gather — the element-gather form costs
-    # ~6.7 ns/el (see ops/spmm._spmm_strip_jnp); windows are in-bounds
-    # by construction.
+    # per-strip window SLICE + batched matvec.  vmapped dynamic_slice, not
+    # an element gather: each index moves one contiguous window.  Windows
+    # are in-bounds by construction.
     xg = jax.vmap(
         lambda fc: jax.lax.dynamic_slice(x, (fc,), (A.width,))
     )(A.first_col)  # (n_strips, width)
     y = jnp.einsum("srw,sw->sr", A.strips, xg,
-                   precision=_mxu_precision(A.strips.dtype))
+                   precision=matmul_precision(A.strips.dtype))
     return y.reshape(-1)[: A.shape[0]]
 
 
@@ -140,177 +118,39 @@ _JNP_IMPLS = {
 
 
 def spmv_reference(A, x):
-    """Pure-jnp SpMV (oracle / CPU fallback)."""
+    """Pure-jnp SpMV for any format container."""
     impl = _JNP_IMPLS.get(type(A))
     if impl is None:
         raise TypeError(f"spmv: unsupported format {type(A).__name__}")
     return impl(A, x)
 
 
-# auto-pack cache: CSR container → row-lane slab layout, built on first
-# TPU dispatch (the reference's user calls one method and gets the fast
-# kernel, sparse-matrix.cc:140 → kernel.cc:771; here the pack is the
-# encode-once step and this cache hides it).  Keyed by container identity
-# (CSR holds unhashable arrays) with weakref eviction so dropping the CSR
-# drops its pack.
-import weakref
+def prepare_spmv(A: "CSR", layout: str = "auto", **pack_kwargs):
+    """Explicit build step: choose the SpMV layout for a CSR once.
 
-_AUTO_PACK_CACHE: dict = {}
-_BSR_CSR_CACHE: dict = {}
-
-
-def _bsr_csr_of(A: BSR):
-    """Build-time BSR→CSR conversion (cached per container) so small-block
-    BSR SpMV inherits the CSR auto-pack fast path."""
-    import jax.core
-
-    if isinstance(A.data, jax.core.Tracer):
-        return None
-    key = id(A)
-    entry = _BSR_CSR_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    from ..formats.convert import bsr_to_csr
-
-    # the conversion runs jnp ops (todense); force eager evaluation even
-    # when called under an active jit trace (the container is concrete)
-    with jax.ensure_compile_time_eval():
-        csr = bsr_to_csr(A)
-    ref = weakref.ref(A, lambda _u, k=key: _BSR_CSR_CACHE.pop(k, None))
-    _BSR_CSR_CACHE[key] = (ref, csr)
-    return csr
-# auto-pack pays off once rows are long enough for slabs to fill; below
-# this the XLA path is used (still correct, and packing cost isn't hidden
-# where it can't win)
-_AUTO_PACK_MIN_NNZ_PER_ROW = 8
-_AUTO_PACK_MIN_NNZ = 4096
-
-
-def prepare_spmv(A: "CSR", layout: str = "auto", skew: str = "auto",
-                 **pack_kwargs):
-    """Explicit build step: pack a CSR for the fast SpMV kernel.
-
-    Returns a packed layout accepted by ``spmv``/the solvers.  Use this
-    (instead of relying on the auto-pack cache) when ``spmv`` will be
-    called inside ``jax.jit`` — packing is a host-side encode and cannot
-    happen on traced arrays.
-
-    ``layout``: ``"dualgather"`` (fill-optimal two-gather slabs — the
-    fastest unstructured-CSR layout, see kernels/spmv_dualgather.py),
-    ``"rowlane"`` (single-gather slabs — per-tile grid steps),
-    ``"superblock"`` (slabs of 16 tiles share a grid step —
-    right for scattered patterns at ~1-2 slabs/tile, where the rowlane
-    kernel is grid-step-bound), ``"strip"`` (locally-densified strips for
-    band-local matrices — batched full-tile MXU matvecs), or ``"auto"``
-    (strip when the matrix is band-local and dense enough within the band;
-    else dualgather; superblock if the pack came out step-bound:
-    auto-group ≤ 2 over many tiles)."""
-    from ..kernels.spmv_rowlane import pack_sell_rowlane
-
-    if layout == "dualgather":
-        from ..kernels.spmv_dualgather import pack_dualgather
-
-        return pack_dualgather(A, **pack_kwargs)
-    if layout == "superblock":
-        from ..kernels.spmv_superblock import pack_superblock
-
-        return pack_superblock(A, **pack_kwargs)
+    ``layout``: ``"strip"`` (locally-densified strips for band-local
+    matrices — one batched matvec over contiguous x windows) or
+    ``"auto"`` (the strip pack when the matrix is band-local and dense
+    enough within the band, else the CSR itself).  Host-side, so call it
+    outside ``jax.jit`` and pass the result in."""
     if layout == "strip":
-        from ..formats import StripDense
-
         return StripDense.from_csr(A, **pack_kwargs)
-    if layout == "octet":
-        from ..kernels.spmv_octet import pack_octet
-
-        return pack_octet(A, **pack_kwargs)
-    if layout == "skew":
-        from .skew import pack_skew
-
-        return pack_skew(A, **pack_kwargs)
-    if layout not in ("auto", "rowlane"):
+    if layout != "auto":
         raise ValueError(f"unknown layout {layout!r}")
-    if (layout == "auto" and skew == "auto" and not pack_kwargs
-            and A.shape[0] >= 4096 and A.nnz >= 65536):
-        # power-law guard (VERDICT r4 §6): one hub row/column forces
-        # every (tile, window) it touches to its own depth — measured
-        # fill 0.62 → 0.05 on Zipf structure.  The hybrid layout
-        # dense-blocks the hubs and degree-sorts the rest (ops/skew.py).
-        from .skew import pack_skew, skew_stats
-
-        dmax, dmean, cmax = skew_stats(A)
-        cmean = max(A.nnz / max(A.shape[1], 1), 1e-9)
-        if (dmax >= max(32 * dmean, 512)
-                or cmax >= max(32 * cmean, 512)):
-            return pack_skew(A)
-    if layout == "auto" and not pack_kwargs:
-        strip = _maybe_strip(A)
-        if strip is not None:
-            return strip
-        if A.nnz <= 2 * A.shape[0] and A.shape[0] >= 2048:
-            # ≲2 entries/row: every tile-keyed slab wastes ≥6/8 sublane
-            # cells; the octet layout spans 8 tiles per slab (see
-            # kernels/spmv_octet.py — the SpGEMM pair-program kernel,
-            # 8.5× the superblock at ~1 entry/row)
-            from ..kernels.spmv_octet import pack_octet
-
-            return pack_octet(A)
-    if layout == "auto":
-        # dual-gather is the measured-best unstructured layout (XL point:
-        # fp32 55.1 vs rowlane 34.5 Gnnz/s, bf16 74.7 vs 44.6 — see
-        # BASELINE.md csr_spmv_xl); 16-tile superblocks kill the group
-        # padding when the matrix spans enough tiles.
-        from ..kernels.spmv_dualgather import pack_dualgather
-
-        n_tiles = -(-A.shape[0] // 128)
-        # round-4 best configs (probe_dualgather_xl5 + the n=4096 A/B):
-        # TWO-WINDOW slabs everywhere; at many tiles kt=8/g=128 wins (XL:
-        # 75.0 vs 67.7 Gnnz/s single-window — the masked accumulator is a
-        # single (8,128) vreg); at few tiles kt=8's per-superblock group
-        # padding collapses fill (0.72→0.49 at n=4096), so kt=32/g=256
-        # wins there (69.9 vs 58.6 Gnnz/s single-window)
-        if n_tiles >= 128:
-            kt, grp = 8, 128
-        elif n_tiles >= 16:
-            kt, grp = min(32, n_tiles), 256
-        else:
-            kt, grp = 1, None
-        dg_kwargs = {k: v for k, v in pack_kwargs.items()
-                     if k in ("dtype", "group", "k_tiles", "spill_cap",
-                              "with_transpose", "two_win")}
-        dg_kwargs.setdefault("k_tiles", kt)
-        if kt > 1 and "spill_cap" not in dg_kwargs:
-            dg_kwargs.setdefault("two_win", True)
-        packed = pack_dualgather(A, **dg_kwargs)
-        if (grp is not None and "group" not in pack_kwargs
-                and packed.two_win and packed.group < grp):
-            # the ≤15%-waste auto group ignores grid-step overhead (it
-            # picked g=16 → 27.3 Gnnz/s vs g=256 → 69.9 at n=4096); a
-            # large fixed group wins unless its superblock padding
-            # collapses fill.  The slot assignment is cached, so the
-            # second pack costs only the array scatter.
-            wide = pack_dualgather(A, **{**dg_kwargs, "group": grp})
-            if wide.fill_rate >= 0.8 * packed.fill_rate:
-                packed = wide
-        # scattered patterns (~1 slab/tile) stay dispatch-bound on any
-        # per-tile grid; the rowlane superblock layout batches them wider
-        if packed.group > 2 or packed.n_tiles <= 256:
-            return packed
-        from ..kernels.spmv_superblock import pack_superblock
-
-        sb_kwargs = {k: v for k, v in pack_kwargs.items() if k == "dtype"}
-        return pack_superblock(A, **sb_kwargs)
-    return pack_sell_rowlane(A, **pack_kwargs)
+    if pack_kwargs:
+        raise TypeError(f"layout='auto' takes no pack options, got "
+                        f"{sorted(pack_kwargs)}")
+    strip = _maybe_strip(A)
+    return A if strip is None else strip
 
 
 def _maybe_strip(A: "CSR"):
     """StripDense pack when the matrix is band-local AND dense within the
-    band (strip fill ≥ 0.25 — where the dense batched matvec's extra
-    zero-FLOPs cost less than slab-gather machinery); None otherwise.
+    band (strip fill ≥ 0.25, so the dense batched matvec wastes at most
+    3× the stored entries); None otherwise.
 
     Band-locality is judged by ``from_csr`` itself (one scan, one rule —
     a 2048-column window cap here vs its 8192 default)."""
-    from ..formats import StripDense
-
     if A.nnz == 0 or A.shape[0] < 128:
         return None
     try:
@@ -322,98 +162,11 @@ def _maybe_strip(A: "CSR"):
     return S
 
 
-def _auto_pack(A: "CSR"):
-    """Pack-and-cache for concrete (non-traced) CSR on the TPU backend;
-    returns None when auto-packing doesn't apply."""
-    import jax.core
-
-    if isinstance(A.data, jax.core.Tracer):
-        return None  # inside jit: user must prepare_spmv() ahead of time
-    if A.nnz < _AUTO_PACK_MIN_NNZ or A.nnz < _AUTO_PACK_MIN_NNZ_PER_ROW * A.shape[0]:
-        return None
-    key = id(A)
-    entry = _AUTO_PACK_CACHE.get(key)
-    if entry is not None and entry[0]() is A:
-        return entry[1]
-    # the pack is host-side numpy, but its jnp.asarray outputs must stay
-    # CONCRETE even when this runs during a jit trace of the surrounding
-    # spmv (constants created inside a trace are tracers; caching a tracer
-    # leaks it into later traces)
-    with jax.ensure_compile_time_eval():
-        packed = prepare_spmv(A)
-    ref = weakref.ref(A, lambda _unused, k=key: _AUTO_PACK_CACHE.pop(k, None))
-    _AUTO_PACK_CACHE[key] = (ref, packed)
-    return packed
-
-
 def spmv(A, x):
-    """``y = A @ x``.  Dispatches to Pallas on TPU where beneficial.
-
-    Accepts any format container, plus the packed SpMV layouts
-    (``pack_sell`` / ``pack_sell_rowpure`` / ``pack_sell_rowlane``
-    results).  Concrete CSR inputs on TPU are packed automatically on
-    first call and the pack cached on the container; inside ``jax.jit``
-    call ``prepare_spmv`` once at build time instead.
-    """
-    from ..kernels.spmv_pallas import (
-        SellRowPure,
-        SellSpmv,
-        spmv_sell,
-        spmv_sell_rowpure,
-    )
-    from ..kernels.spmv_dualgather import DualGather, spmv_dualgather
-    from ..kernels.spmv_octet import Octet, spmv_octet
-    from ..kernels.spmv_rowlane import SellRowLane, spmv_sell_rowlane
-    from ..kernels.spmv_superblock import SellSuperblock, spmv_superblock
-
-    from .skew import SkewSpmv, spmv_skew
-
-    if isinstance(A, SkewSpmv):
-        return spmv_skew(A, x)
-    if isinstance(A, DualGather):
-        return spmv_dualgather(A, x)
-    if isinstance(A, Octet):
-        return spmv_octet(A, x)
-    if isinstance(A, SellRowLane):
-        return spmv_sell_rowlane(A, x)
-    if isinstance(A, SellSuperblock):
-        return spmv_superblock(A, x)
-    if isinstance(A, SellRowPure):
-        return spmv_sell_rowpure(A, x)
-    if isinstance(A, SellSpmv):
-        return spmv_sell(A, x)
+    """``y = A @ x`` for any format container (including a
+    ``prepare_spmv`` result)."""
     if x.ndim != 1 or x.shape[0] != A.shape[1]:
         raise ValueError(
             f"spmv: x shape {x.shape} incompatible with matrix {A.shape}"
         )
-    if config.use_pallas():
-        if type(A) is BSR and A.block_shape[0] * A.block_shape[1] < 4096:
-            # small-block BSR: the CSR auto-pack (dual-gather slabs) is
-            # the measured-best SpMV path by ~6x over the batched-einsum
-            # default (BASELINE bsr/spmv 8.8 vs csr_spmv/auto 59 Gnnz/s);
-            # convert once at build time (cached per container).  The
-            # BSR-native kernel stays available via spmv_reference but is
-            # DEPRECATED as a default.
-            csr = _bsr_csr_of(A)
-            if csr is not None:
-                A = csr
-        if type(A) is CSR:
-            packed = _auto_pack(A)
-            if isinstance(packed, DualGather):
-                return spmv_dualgather(packed, x)
-            if isinstance(packed, SellSuperblock):
-                return spmv_superblock(packed, x)
-            if isinstance(packed, StripDense):
-                return _spmv_strip_jnp(packed, x)
-            from ..kernels.spmv_octet import Octet, spmv_octet
-
-            if isinstance(packed, Octet):
-                return spmv_octet(packed, x)
-            if packed is not None:
-                return spmv_sell_rowlane(packed, x)
-        from ..kernels import spmv_pallas
-
-        impl = spmv_pallas.PALLAS_IMPLS.get(type(A))
-        if impl is not None:
-            return impl(A, x)
     return spmv_reference(A, x)

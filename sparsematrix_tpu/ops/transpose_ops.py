@@ -5,9 +5,8 @@ gather-multiply with ``row_ids``/``indices`` swapped).
 
 ``csr_transpose_device``: a full structural transpose computed ON DEVICE
 (two stable sorts + searchsorted, all jittable) — the analogue of the
-reference's ``sblas_trans_kernel`` (/root/reference/src/sparse/
-kernel.cc:31-187), which the round-1 build only offered host-side via
-scipy.  Padding entries (zero data, in-range indices) sort to the end and
+reference's ``sblas_trans_kernel`` (reference src/sparse/
+kernel.cc:31-187), besides the host-side transpose via scipy.  Padding entries (zero data, in-range indices) sort to the end and
 stay harmless.
 """
 from __future__ import annotations

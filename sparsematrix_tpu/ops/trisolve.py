@@ -1,6 +1,6 @@
 """Sparse triangular solve ``L x = b`` / ``U x = b``.
 
-TPU-native design — **level scheduling**: the dependency DAG of the
+Design — **level scheduling**: the dependency DAG of the
 triangular matrix is stratified on the host into levels whose rows are
 mutually independent; the device then runs a ``lax.scan`` over levels, each
 step solving its whole level vectorized (gather of already-solved x,
@@ -26,7 +26,6 @@ from ..formats.base import default_index_dtype, register_sparse_pytree
 __all__ = [
     "TriSolvePlan", "trisolve_plan", "trisolve_apply", "trisolve",
     "TriFixPlan", "trisolve_fixpoint_plan", "trisolve_fixpoint_apply",
-    "TriLevelPlan", "trisolve_level_plan", "trisolve_level_apply",
 ]
 
 
@@ -170,51 +169,17 @@ def trisolve_apply(plan: TriSolvePlan, b):
     return x[:n]
 
 
-# the wave plans trade HBM for grid steps (n·128·4 B chain, n·m·128·4 B
-# binv); above this a1 footprint the fused slab engine is the better deal
-_WAVES_MAX_A1_BYTES = 1 << 30
-
-
 def trisolve(A: CSR, b, lower: bool = True, unit_diagonal: bool = False):
     """One-shot triangular solve (host plan + device apply).
 
-    Fast by default: plans the wave engine (kernels/trisolve_waves.py —
-    host-inverted diagonal blocks, MXU commits; 17× the fused slab
-    engine at the n=4096 Poisson-ILU point), falling back to the fused
-    single-pallas-call engine when the inverse blocks would outgrow
-    their HBM budget, and to the level-scheduled gather plan for
-    patterns too scattered for the padded slab layout.
+    ``b`` is a vector (n,) or a panel (n, k); a panel solves its columns
+    through one vmapped level scan.
     """
-    n = A.shape[0]
-    multi = jnp.ndim(b) == 2
-    if n * 128 * 4 * 4 <= _WAVES_MAX_A1_BYTES:
-        from ..kernels.trisolve_waves import (trisolve_waves_apply,
-                                              trisolve_waves_apply_mm,
-                                              trisolve_waves_plan)
-
-        plan = trisolve_waves_plan(A, lower=lower,
-                                   unit_diagonal=unit_diagonal)
-        if multi:
-            return trisolve_waves_apply_mm(plan, b)
-        return trisolve_waves_apply(plan, b)
-    from ..kernels.trisolve_fused import (trisolve_fused_apply,
-                                          trisolve_fused_apply_batched,
-                                          trisolve_fused_plan)
-
-    try:
-        plan = trisolve_fused_plan(A, lower=lower,
-                                   unit_diagonal=unit_diagonal)
-    except ValueError as e:
-        if "too scattered" not in str(e):
-            raise
-        lplan = trisolve_plan(A, lower=lower, unit_diagonal=unit_diagonal)
-        if multi:
-            return jax.vmap(lambda c: trisolve_apply(lplan, c),
-                            in_axes=1, out_axes=1)(b)
-        return trisolve_apply(lplan, b)
-    if multi:
-        return trisolve_fused_apply_batched(plan, b)
-    return trisolve_fused_apply(plan, b)
+    plan = trisolve_plan(A, lower=lower, unit_diagonal=unit_diagonal)
+    if jnp.ndim(b) == 2:
+        return jax.vmap(lambda c: trisolve_apply(plan, c),
+                        in_axes=1, out_axes=1)(b)
+    return trisolve_apply(plan, b)
 
 
 # ---------------------------------------------------------------------------
@@ -230,13 +195,14 @@ class TriFixPlan:
     update ``x ← D⁻¹(b − E x)`` started from ``x₀ = D⁻¹ b`` satisfies
     ``x_k = Σ_{j≤k} (−D⁻¹E)^j D⁻¹ b`` — and ``(D⁻¹E)^m = 0`` where m is
     the level count of the dependency DAG, so ``n_iters = m − 1`` updates
-    give the EXACT solve.  Each update is one SpMV on the row-lane Pallas
-    layout inside ``lax.scan`` — no XLA gathers/scatters on the hot path
-    (vs one padded gather per level in ``TriSolvePlan``).  ``n_iters`` can
-    be lowered for an approximate solve (preconditioner use).
+    give the EXACT solve.  Each update is one CSR SpMV of E inside
+    ``lax.scan`` (total work ``n_iters · nnz(E)`` against the level scan's
+    ``nnz``, but every step is one wide gather + segment-sum).
+    ``n_iters`` can be lowered for an approximate solve (preconditioner
+    use).
     """
 
-    e_packed: object  # SellRowLane of strictly-triangular E
+    e: CSR  # strictly-triangular E
     inv_diag: jnp.ndarray  # (n,) — 1/diag (ones for unit_diagonal)
     shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
     n_iters: int = dataclasses.field(metadata={"static": True})
@@ -247,16 +213,15 @@ class TriFixPlan:
 def trisolve_fixpoint_plan(A: CSR, lower: bool = True,
                            unit_diagonal: bool = False,
                            n_iters: int | None = None,
-                           **pack_kwargs) -> TriFixPlan:
-    """Build the fixed-point plan: pack E row-lane, invert D, count levels.
+                           capacity: int | None = None) -> TriFixPlan:
+    """Build the fixed-point plan: split off E, invert D, count levels.
 
     ``n_iters=None`` → exact (levels − 1 updates); a smaller value gives
     the truncated-Neumann approximate solve (still a fixed linear
-    operator — valid as a preconditioner).
+    operator — valid as a preconditioner).  ``capacity`` pads E with
+    explicit zeros to that many stored entries.
     """
     import scipy.sparse as sps
-
-    from ..kernels.spmv_rowlane import pack_sell_rowlane
 
     sp = A.to_scipy().tocsr()
     sp.sort_indices()
@@ -286,9 +251,20 @@ def trisolve_fixpoint_plan(A: CSR, lower: bool = True,
     E = sps.coo_matrix(
         (data[offd], (rid[offd], indices[offd])), shape=(n, n)
     ).tocsr()
-    e_packed = pack_sell_rowlane(CSR.from_scipy(E), **pack_kwargs)
+    E.sort_indices()
+    e_ptr, e_idx, e_val = E.indptr.astype(np.int64), E.indices, E.data
+    if capacity is not None:
+        pad = capacity - E.nnz
+        if pad < 0:
+            raise ValueError(f"capacity {capacity} < nnz(E) = {E.nnz}")
+        # explicit zeros in the last row make nnz == capacity, so plans
+        # built with one capacity share one static layout
+        e_ptr = e_ptr.copy()
+        e_ptr[-1] += pad
+        e_idx = np.concatenate([e_idx, np.zeros(pad, e_idx.dtype)])
+        e_val = np.concatenate([e_val, np.zeros(pad, e_val.dtype)])
     return TriFixPlan(
-        e_packed=e_packed,
+        e=CSR.from_arrays(e_ptr, e_idx, e_val, (n, n)),
         inv_diag=jnp.asarray(inv_d),
         shape=(n, n),
         n_iters=int(n_iters),
@@ -298,187 +274,15 @@ def trisolve_fixpoint_plan(A: CSR, lower: bool = True,
 
 
 def trisolve_fixpoint_apply(plan: TriFixPlan, b):
-    """Device numeric solve (jittable): ``n_iters`` row-lane SpMVs."""
-    from ..kernels.spmv_rowlane import spmv_sell_rowlane
+    """Device numeric solve (jittable): ``n_iters`` CSR SpMVs."""
+    from .spmv import spmv
 
     x = plan.inv_diag * b
 
     def step(x, _):
-        x = plan.inv_diag * (b - spmv_sell_rowlane(plan.e_packed, x))
+        x = plan.inv_diag * (b - spmv(plan.e, x))
         return x, None
 
     if plan.n_iters:
         x, _ = jax.lax.scan(step, x, None, length=plan.n_iters)
-    return x
-
-
-# ---------------------------------------------------------------------------
-# Level-packed solve — one row-lane kernel call per level, total work = nnz
-# ---------------------------------------------------------------------------
-
-@register_sparse_pytree
-@dataclasses.dataclass(frozen=True)
-class TriLevelPlan:
-    """Level-scheduled solve on the row-lane kernel.
-
-    Each level's rows (mutually independent, deps all in lower levels) form
-    their own row-lane slab program; all levels are padded to a common
-    ``(n_groups, group)`` so ONE compiled kernel scans them — total slab
-    work equals one SpMV over E (vs ``n_levels`` full SpMVs in
-    ``TriFixPlan``), with no per-level XLA gathers (vs ``TriSolvePlan``).
-    """
-
-    s_idx: jnp.ndarray  # (n_levels-1, n_groups, group*8, 128) int8
-    vals: jnp.ndarray  # (n_levels-1, n_groups, group*8, 128)
-    group_tile: jnp.ndarray  # (n_levels-1, n_groups) int32
-    slab_win: jnp.ndarray  # (n_levels-1, n_groups, group) int32
-    level_of: jnp.ndarray  # (n,) int32
-    inv_diag: jnp.ndarray  # (n,)
-    shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
-    group: int = dataclasses.field(metadata={"static": True})
-    n_tiles: int = dataclasses.field(metadata={"static": True})
-    n_win: int = dataclasses.field(metadata={"static": True})
-    lower: bool = dataclasses.field(metadata={"static": True})
-    unit_diagonal: bool = dataclasses.field(metadata={"static": True})
-
-
-def trisolve_level_plan(A: CSR, lower: bool = True,
-                        unit_diagonal: bool = False,
-                        group: int | None = None,
-                        dtype=None) -> TriLevelPlan:
-    """Stratify + pack each level's rows row-lane, padded to a common shape.
-
-    ``dtype=jnp.bfloat16`` stores off-diagonal values bf16 (fp32 accum).
-    Padding slabs carry zero values and repeat the last tile id, so they
-    accumulate nothing.
-    """
-    from ..kernels.spmv_rowlane import pack_sell_rowlane
-
-    import scipy.sparse as sps
-
-    sp = A.to_scipy().tocsr()
-    sp.sort_indices()
-    n = sp.shape[0]
-    if sp.shape[0] != sp.shape[1]:
-        raise ValueError("trisolve needs a square matrix")
-    indptr, indices, data = sp.indptr.astype(np.int64), sp.indices, sp.data
-    rid = np.repeat(np.arange(n), np.diff(indptr))
-    offd = (indices < rid) if lower else (indices > rid)
-    diag_mask = indices == rid
-
-    inv_d = np.ones(n, dtype=np.float32)
-    if not unit_diagonal:
-        drows = rid[diag_mask]
-        dv = data[diag_mask]
-        if len(drows) < n or (dv == 0).any():
-            missing = np.setdiff1d(np.arange(n), drows)
-            bad = (missing[0] if len(missing)
-                   else drows[np.nonzero(dv == 0)[0][0]])
-            raise ValueError(f"zero/missing diagonal at row {bad}")
-        inv_d[drows] = 1.0 / dv
-
-    level = _compute_levels(n, rid[offd], indices[offd].astype(np.int64))
-    n_levels = int(level.max()) + 1 if n else 1
-
-    er, ec, ev = rid[offd], indices[offd], data[offd]
-    elvl = level[er]
-    packs = []
-    for j in range(1, n_levels):
-        m = elvl == j
-        Ej = sps.coo_matrix((ev[m], (er[m], ec[m])), shape=(n, n)).tocsr()
-        packs.append(pack_sell_rowlane(CSR.from_scipy(Ej), group=group,
-                                       lanes_per_row=1, dtype=dtype))
-    if packs:
-        # common group: the largest level knows the right batch size
-        sel = max(packs, key=lambda p: p.s_idx.shape[0] * p.group)
-        g_sel = sel.group
-        if any(p.group != g_sel for p in packs):
-            packs = [
-                p if p.group == g_sel else pack_sell_rowlane(
-                    CSR.from_scipy(sps.coo_matrix(
-                        (ev[elvl == j + 1], (er[elvl == j + 1],
-                                             ec[elvl == j + 1])),
-                        shape=(n, n)).tocsr()),
-                    group=g_sel, lanes_per_row=1, dtype=dtype)
-                for j, p in enumerate(packs)
-            ]
-        ng_max = max(p.s_idx.shape[0] for p in packs)
-        vdtype = packs[0].vals.dtype
-
-        def padded(p):
-            ng = p.s_idx.shape[0]
-            pad = ng_max - ng
-            if pad == 0:
-                return p.s_idx, p.vals, p.group_tile, p.slab_win
-            zi = np.zeros((pad, g_sel * 8, 128), np.int8)
-            zv = np.zeros((pad, g_sel * 8, 128), vdtype)
-            last = p.group_tile[-1]
-            return (
-                jnp.concatenate([p.s_idx, jnp.asarray(zi)]),
-                jnp.concatenate([p.vals, jnp.asarray(zv, vdtype)]),
-                jnp.concatenate([p.group_tile,
-                                 jnp.full((pad,), last, jnp.int32)]),
-                jnp.concatenate([p.slab_win,
-                                 jnp.zeros((pad, g_sel), jnp.int32)]),
-            )
-
-        parts = [padded(p) for p in packs]
-        s_idx = jnp.stack([q[0] for q in parts])
-        vals = jnp.stack([q[1] for q in parts])
-        group_tile = jnp.stack([q[2] for q in parts])
-        slab_win = jnp.stack([q[3] for q in parts])
-        n_tiles, n_win = packs[0].n_tiles, packs[0].n_win
-    else:
-        g_sel, n_tiles, n_win = 8, max(-(-n // 128), 1), max(-(-n // 1024), 1)
-        vdtype = np.float32 if dtype is None else dtype
-        s_idx = jnp.zeros((0, 1, g_sel * 8, 128), jnp.int8)
-        vals = jnp.zeros((0, 1, g_sel * 8, 128), vdtype)
-        group_tile = jnp.zeros((0, 1), jnp.int32)
-        slab_win = jnp.zeros((0, 1, g_sel), jnp.int32)
-
-    idt = default_index_dtype
-    return TriLevelPlan(
-        s_idx=s_idx,
-        vals=vals,
-        group_tile=group_tile,
-        slab_win=slab_win,
-        level_of=jnp.asarray(level, idt),
-        inv_diag=jnp.asarray(inv_d),
-        shape=(n, n),
-        group=g_sel,
-        n_tiles=n_tiles,
-        n_win=n_win,
-        lower=lower,
-        unit_diagonal=unit_diagonal,
-    )
-
-
-def trisolve_level_apply(plan: TriLevelPlan, b):
-    """Device numeric solve (jittable): ``lax.scan`` over levels, one
-    row-lane kernel call each."""
-    from ..config import config
-    from ..kernels.spmv_rowlane import _LANES, _rowlane_call
-
-    n = plan.shape[0]
-    x = plan.inv_diag * b
-    if plan.s_idx.shape[0] == 0:
-        return x
-    S = plan.n_win * 8
-    interp = config.interpret()
-
-    def step(carry, lvl):
-        x, j = carry
-        s_idx, vals, gt, sw = lvl
-        xp = (jnp.zeros((S * _LANES,), x.dtype).at[:n].set(x)
-              .reshape(S, _LANES))
-        y = _rowlane_call(gt, sw, s_idx, vals, xp, group=plan.group,
-                          n_tiles=plan.n_tiles, interpret=interp)
-        # lanes_per_row=1: sublane 0 of each tile holds the row sums
-        y = y.reshape(plan.n_tiles, 8, _LANES)[:, 0, :].reshape(-1)[:n]
-        x = jnp.where(plan.level_of == j, (b - y) * plan.inv_diag, x)
-        return (x, j + 1), None
-
-    (x, _), _ = jax.lax.scan(
-        step, (x, jnp.int32(1)),
-        (plan.s_idx, plan.vals, plan.group_tile, plan.slab_win))
     return x

@@ -1,11 +1,5 @@
 from .partition import PartitionedCSR, partition_csr_rows, partition_csr_cols
 from .dist_ops import dist_spmv, dist_spmm, shard_partitioned, make_mesh
-from .dist_rowlane import (
-    PartitionedRowLane,
-    partition_rowlane,
-    dist_spmv_rowlane,
-    dist_spmm_rowlane,
-)
 from .dist_dense import (
     PartitionedDense,
     partition_dense_rows,
@@ -46,19 +40,7 @@ from .halo import shard_halo
 from .dist_solve import dist_bicgstab, dist_cg, dist_gmres
 from .dist_precond import (ShardedPrecond, block_ic0_precond,
                            block_ilu0_precond)
-from .dist_dualgather import (PartitionedDualGather, dist_spmm_dualgather,
-                              dist_spmv_dualgather, partition_dualgather)
 from .dist_spgemm import (
-    DistSpGEMMPacked,
-    dist_spgemm_packed_plan,
-    dist_spgemm_packed_apply,
-    dist_spgemm_packed_apply_csc,
-    shard_dist_spgemm_packed,
-    DistSpGEMM2D,
-    dist_spgemm_packed_plan_2d,
-    dist_spgemm_packed_apply_2d,
-    dist_spgemm_packed_apply_2d_csc,
-    shard_dist_spgemm_packed_2d,
     DistSpGEMMPlan,
     dist_spgemm_plan,
     dist_spgemm_apply,
@@ -66,10 +48,6 @@ from .dist_spgemm import (
 )
 
 __all__ = [
-    "PartitionedRowLane",
-    "partition_rowlane",
-    "dist_spmv_rowlane",
-    "dist_spmm_rowlane",
     "PartitionedDense",
     "partition_dense_rows",
     "shard_dense",
@@ -83,10 +61,6 @@ __all__ = [
     "dist_bicgstab",
     "dist_cg",
     "ShardedPrecond",
-    "PartitionedDualGather",
-    "partition_dualgather",
-    "dist_spmv_dualgather",
-    "dist_spmm_dualgather",
     "block_ic0_precond",
     "block_ilu0_precond",
     "dist_gmres",
@@ -94,16 +68,6 @@ __all__ = [
     "make_mesh",
     "DistSpGEMMPlan",
     "dist_spgemm_plan",
-    "DistSpGEMMPacked",
-    "dist_spgemm_packed_plan",
-    "DistSpGEMM2D",
-    "dist_spgemm_packed_plan_2d",
-    "dist_spgemm_packed_apply_2d",
-    "dist_spgemm_packed_apply_2d_csc",
-    "shard_dist_spgemm_packed_2d",
-    "dist_spgemm_packed_apply",
-    "dist_spgemm_packed_apply_csc",
-    "shard_dist_spgemm_packed",
     "dist_spgemm_apply",
     "shard_dist_spgemm",
     "PartitionedBlockedELL",

@@ -1,10 +1,9 @@
 """Distributed block-format SpMM: row-partitioned BlockedELL over a mesh.
 
 Each device owns a band of block-rows (stacked on a leading shard axis);
-the dense RHS is all-gathered over ICI and each device runs the local
-blocked-ELL product (the MXU pallas kernel on TPU, the jnp reference
-elsewhere).  This is the distributed face of the framework's MXU SpMM path
-(SURVEY §7 phase D capability).
+the dense RHS is all-gathered and each device runs the local blocked-ELL
+product (gathered blocks + one einsum).  This is the distributed face of
+the framework's block SpMM path (SURVEY §7 phase D capability).
 """
 from __future__ import annotations
 
@@ -93,10 +92,10 @@ def dist_spmm_bell(part: PartitionedBlockedELL, X, mesh: Mesh,
         X_full = X_full[: nbc * bk]
         Xb = X_full.reshape(nbc, bk, k)
         gathered = Xb[bc_local[0]]  # (local_nbr, M, bk, k)
-        from ..ops.spmm import _mxu_precision
+        from ..utils.precision import matmul_precision
 
         acc = jnp.einsum("rmij,rmjk->rik", bl_local[0], gathered,
-                         precision=_mxu_precision(bl_local.dtype))
+                         precision=matmul_precision(bl_local.dtype))
         return acc.reshape(part.local_nbr * bm, k)
 
     Y = run(part.block_cols, part.blocks, Xp)

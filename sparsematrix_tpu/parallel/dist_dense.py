@@ -1,22 +1,21 @@
-"""Distributed SpMM with PRE-DENSIFIED local bands (MXU local compute).
+"""Distributed SpMM with PRE-DENSIFIED local bands (dense local compute).
 
 ``dist_spmm`` (dist_ops.py) runs an XLA gather+segment_sum as each device's
-local compute — correct, but far off the chip's fast paths.  For the
-densify-eligible regime (the same rule as single-chip ``spmm(auto)``:
-density ≥ ~5 %), the measured-best local compute is the dense MXU
-contraction of a band materialized ONCE at partition time (the pre-dense
+local compute.  For the densify-eligible regime (the same rule as
+single-device ``spmm(auto)``: density ≥ ~5 %), the local compute can be
+one dense contraction of a band materialized ONCE at partition time (the pre-dense
 path, `Dense.from_sparse` analogue).  This module composes it with the
 north-star collectives:
 
-  * 1-D row partition (`dist_spmm_dense`): RHS all-gathered over ICI,
-    local ``band @ X_full`` on the MXU, output row-sharded.
+  * 1-D row partition (`dist_spmm_dense`): RHS all-gathered, local
+    ``band @ X_full``, output row-sharded.
   * 2-D row×col mesh (`dist_spmm_dense_2d`): RHS column-panels gathered
     over the 'row' axis only, local ``band @ X_panel`` — the fast-local
     counterpart of ``dist_spmm_2d``.
 
 The stacked-band representation follows the PartitionedCSR convention
 (leading shard axis, equal static shapes; zero padding harmless).  The
-reference has no distributed layer (SURVEY §2.4) — this is the TPU-native
+reference has no distributed layer (SURVEY §2.4) — this is the
 composition of its dense-fallback stance (kernel.cc's dense race) with
 mesh collectives.
 """
@@ -34,14 +33,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..formats.base import register_sparse_pytree
 from ..formats.csr import CSR
+from ..utils.precision import matmul_precision
 
 __all__ = ["PartitionedDense", "partition_dense_rows", "dist_spmm_dense",
            "dist_spmm_dense_2d", "shard_dense"]
-
-
-def _mxu_precision(dtype):
-    return (jax.lax.Precision.HIGHEST if dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT)
 
 
 @register_sparse_pytree
@@ -58,9 +53,8 @@ def partition_dense_rows(csr: CSR, n_shards: int,
                          dtype=None) -> PartitionedDense:
     """Materialize per-shard dense row bands (host, encode-once).
 
-    ``dtype=bfloat16`` stores the bands in bf16 — halves both HBM traffic
-    and the MXU input width (the measured-best config for dense-regime
-    SpMM).
+    ``dtype=bfloat16`` stores the bands in bf16 — halves the memory
+    traffic and runs the local product on the bf16 tensor cores.
     """
     sp = csr.to_scipy().tocsr()
     rows, cols = sp.shape
@@ -107,7 +101,7 @@ def dist_spmm_dense(part: PartitionedDense, X, mesh: Mesh,
         X_full = jax.lax.all_gather(X_local, axis_name, tiled=True)[:cols]
         band = p_local.bands[0]
         return jnp.dot(band, X_full.astype(band.dtype),
-                       precision=_mxu_precision(band.dtype))
+                       precision=matmul_precision(band.dtype))
 
     Y = run(part, Xp)
     return Y[: part.shape[0]]
@@ -139,7 +133,7 @@ def dist_spmm_dense_2d(part: PartitionedDense, X, mesh: Mesh):
         X_panel = jax.lax.all_gather(X_local, "row", tiled=True)[:n]
         band = p_local.bands[0]
         return jnp.dot(band, X_panel.astype(band.dtype),
-                       precision=_mxu_precision(band.dtype))
+                       precision=matmul_precision(band.dtype))
 
     Y = run(part, Xp)
     return Y[: part.shape[0], :k]

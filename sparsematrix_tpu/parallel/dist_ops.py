@@ -1,7 +1,7 @@
 """Distributed SpMV / SpMM via ``shard_map`` over a device mesh.
 
 1-D row partition: each device holds a row band of A and a band of x/X.
-The RHS is all-gathered over ICI (the x-halo exchange of the north star),
+The RHS is all-gathered (the x-halo exchange of the north star),
 then each device runs its local CSR kernel — compute and XLA's collective
 scheduling overlap automatically under ``jit``.
 
@@ -9,8 +9,8 @@ Column partition: each device holds a column band with rebased indices and
 the matching x band; local products are partial sums reduced with ``psum``
 (or ``psum_scatter`` to keep the output sharded).
 
-The reference has no distributed layer (SURVEY §2.4); these are the
-TPU-native equivalents built on XLA collectives instead of NCCL/MPI.
+The reference has no distributed layer (SURVEY §2.4); these are built on
+XLA collectives (NCCL on the GPU) under ``shard_map``.
 """
 from __future__ import annotations
 

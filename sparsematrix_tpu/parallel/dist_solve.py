@@ -4,8 +4,7 @@ The reference has no solver or distributed layer (SURVEY §2.4); this is the
 north-star composition: the WHOLE iteration lives inside one ``shard_map``
 region, so per iteration the only communication is
 
-  * one tiled ``all_gather`` of the search direction (the x-halo exchange
-    riding ICI), and
+  * one tiled ``all_gather`` of the search direction (the x-halo exchange), and
   * two scalar ``psum``s: one for ``p·Ap`` and ONE stacked psum carrying
     both ``r·z`` and ``r·r`` (the convergence test reuses the carried
     ``r·r`` — no extra collective in ``cond``).
@@ -29,7 +28,7 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..solvers.krylov import SolveResult
+from ..solvers.krylov import _TRUE_RESIDUAL_RESTARTS, SolveResult
 from .dist_ops import _pad_vec
 from .partition import PartitionedCSR
 
@@ -126,7 +125,7 @@ def dist_cg(part: PartitionedCSR, b, mesh: Mesh, axis_name: str = "shard",
         shard_map, mesh=mesh,
         in_specs=(P(axis_name), P(axis_name), P(axis_name), P(axis_name)),
         out_specs=(P(axis_name), P(), P()),
-        # per-shard-pure pallas solves may run inside (ShardedPrecond)
+        # a ShardedPrecond state is per-shard by construction
         check_vma=False,
     )
     def run(p_local, b_local, x_local, m_local):
@@ -140,10 +139,6 @@ def dist_cg(part: PartitionedCSR, b, mesh: Mesh, axis_name: str = "shard",
             return jax.lax.psum(
                 jnp.stack([jnp.vdot(a, c), jnp.vdot(d, e)]), axis_name)
 
-        r = b_loc - matvec(x_loc)
-        z = apply_M(r)
-        p = z
-        rz, rr = _dots2(r, z, r, r)
         bnorm = jnp.sqrt(jnp.maximum(_psum_dot(b_loc, b_loc), 1e-60))
 
         def cond(state):
@@ -164,8 +159,15 @@ def dist_cg(part: PartitionedCSR, b, mesh: Mesh, axis_name: str = "shard",
             p = z + beta * p
             return (x, r, p, rz_new, rr_new, k + 1)
 
-        x_loc, r, p, rz, rr, k = jax.lax.while_loop(
-            cond, body, (x_loc, r, p, rz, rr, 0))
+        # restart from the true residual once the recurrence converges
+        # (solvers.krylov._TRUE_RESIDUAL_RESTARTS)
+        k = 0
+        for _ in range(1 + _TRUE_RESIDUAL_RESTARTS):
+            r = b_loc - matvec(x_loc)
+            z = apply_M(r)
+            rz, rr = _dots2(r, z, r, r)
+            x_loc, r, p, rz, rr, k = jax.lax.while_loop(
+                cond, body, (x_loc, r, z, rz, rr, k))
         return x_loc, k, jnp.sqrt(jnp.maximum(rr, 0.0))
 
     x, iters, residual = run(part, b_pad, x0_pad,
@@ -199,7 +201,7 @@ def dist_bicgstab(part: PartitionedCSR, b, mesh: Mesh,
         shard_map, mesh=mesh,
         in_specs=(P(axis_name), P(axis_name), P(axis_name), P(axis_name)),
         out_specs=(P(axis_name), P(), P(), P()),
-        # per-shard-pure pallas solves may run inside (ShardedPrecond)
+        # a ShardedPrecond state is per-shard by construction
         check_vma=False,
     )
     def run(p_local, b_loc, x_loc, m_local):
@@ -280,7 +282,7 @@ def dist_gmres(part: PartitionedCSR, b, mesh: Mesh,
     replicated scalar math on every device.
 
     Args:
-      restart: Arnoldi cycle length ``m`` (VMEM holds ``m+1`` local bands).
+      restart: Arnoldi cycle length ``m`` (``m+1`` local bands are held).
       maxiter: maximum number of restart CYCLES.  ``iters`` in the result
         counts total inner steps (cycles × restart) — an UPPER bound when
         convergence happens mid-cycle, unlike dist_cg/dist_bicgstab whose
@@ -302,7 +304,7 @@ def dist_gmres(part: PartitionedCSR, b, mesh: Mesh,
         shard_map, mesh=mesh,
         in_specs=(P(axis_name), P(axis_name), P(axis_name), P(axis_name)),
         out_specs=(P(axis_name), P(), P()),
-        # per-shard-pure pallas solves may run inside (ShardedPrecond)
+        # a ShardedPrecond state is per-shard by construction
         check_vma=False,
     )
     def run(p_local, b_loc, x_loc, m_local):
@@ -317,10 +319,9 @@ def dist_gmres(part: PartitionedCSR, b, mesh: Mesh,
         bnorm = jnp.sqrt(jnp.maximum(psum_dot(b_loc, b_loc), 1e-60))
         steps = jnp.arange(m + 1)
 
-        # fp32 matmuls on the v5e MXU truncate inputs to bf16 at DEFAULT
-        # precision (CLAUDE.md); every V-involved product must run HIGHEST
-        # or the CGS2 basis loses orthogonality to ~bf16 and the residual
-        # stalls well above tol.
+        # fp32 matmuls may run as TF32 at DEFAULT precision on the GPU;
+        # every V-involved product must run HIGHEST or the CGS2 basis
+        # loses orthogonality and the residual stalls well above tol.
         hi = jax.lax.Precision.HIGHEST
 
         def arnoldi(j, carry):

@@ -5,7 +5,7 @@ Host symbolic phase: A is column-partitioned and B row-partitioned into k
 bands; each shard's contraction pairs are planned against the **global** C
 structure (the union pattern), so every device produces a partial ``c_data``
 vector of identical static shape.  Device numeric phase: local
-gather-multiply-segment_sum + ``psum`` over the mesh — the TPU-native
+gather-multiply-segment_sum + ``psum`` over the mesh — the
 analogue of a 2-D block SpGEMM with partial-product reduction
 (SURVEY §2.4 north-star capability; no reference analogue).
 """
@@ -24,15 +24,9 @@ from jax import shard_map
 
 from ..formats import CSR
 from ..formats.base import default_index_dtype, register_sparse_pytree
-from ..ops.permute import (apply_permutation,
-                           plan_gather_permutation,
-                           plan_permutation_auto)
 
-__all__ = ["DistSpGEMMPlan", "dist_spgemm_plan", "dist_spgemm_apply",
-           "DistSpGEMMPacked", "dist_spgemm_packed_plan",
-           "shard_dist_spgemm_packed", "dist_spgemm_packed_apply",
-           "DistSpGEMM2D", "dist_spgemm_packed_plan_2d",
-           "shard_dist_spgemm_packed_2d", "dist_spgemm_packed_apply_2d"]
+__all__ = ["DistSpGEMMPlan", "dist_spgemm_plan", "shard_dist_spgemm",
+           "dist_spgemm_apply"]
 
 
 @register_sparse_pytree
@@ -175,734 +169,5 @@ def dist_spgemm_apply(plan: DistSpGEMMPlan, mesh: Mesh,
         data=c_data,
         row_ids=plan.c_row_ids,
         shape=plan.shape,
-        nnz=plan.c_nnz,
-    )
-
-
-# ---------------------------------------------------------------------------
-# Packed distributed SpGEMM: superblock pair programs as local compute
-# ---------------------------------------------------------------------------
-
-@register_sparse_pytree
-@dataclasses.dataclass(frozen=True)
-class DistSpGEMMPacked:
-    """Per-shard SUPERBLOCK pair programs stacked on a device axis.
-
-    ``dist_spgemm_apply`` runs gather+segment_sum as local compute —
-    correct but ~500× off the packed kernel; this plan packs each
-    k-band's pair matrix for the superblock SpMV kernel (the single-chip
-    numeric fast path, ops/spgemm.py:spgemm_plan_packed) with ONE global
-    row space (CSC-ordered C slots), so partial products psum directly.
-    """
-
-    # stacked per-shard SellSuperblock leaves (equal static layout)
-    p_stack: object  # SellSuperblock with leading (n_shards,) leaves
-    src: jnp.ndarray  # (n_shards, p_cols) int32 → global B entry (or cap)
-    b_data: jnp.ndarray  # (b_nnz,) stored B values (replicated)
-    c_gather: jnp.ndarray  # (c_cap,) int32 → CSC rank (or c_nnz sentinel)
-    c_indptr: jnp.ndarray  # (m+1,)
-    c_indices: jnp.ndarray  # (c_cap,)
-    c_row_ids: jnp.ndarray  # (c_cap,)
-    # C^T CSR structure over the CSC-ordered slots — the kernel's native
-    # output order, so the csc apply skips the c_nnz output permutation
-    # (measured 10.2× on the single-chip XL row, probe_spgemm_xl)
-    ct_indptr: jnp.ndarray  # (n+1,)
-    ct_indices: jnp.ndarray  # (c_cap,)
-    ct_row_ids: jnp.ndarray  # (c_cap,)
-    shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
-    n_shards: int = dataclasses.field(metadata={"static": True})
-    c_nnz: int = dataclasses.field(metadata={"static": True})
-    # planned sort permutation for the CSR-output reorder (ops/permute.py;
-    # 4.5x the arbitrary gather at XL sizes); None on legacy plans
-    c_perm: object = None
-    # stacked per-shard sort keys (n_shards, cap) for the local b-permute
-    # (the 6-9x sort-vs-gather lever applied shard-locally); None legacy
-    b_keys: object = None
-
-
-def dist_spgemm_packed_plan(A: CSR, B: CSR, n_shards: int,
-                            group: int = 16,
-                            k_tiles: int = 16,
-                            layout: str = "auto",
-                            b_permute: str = "sort") -> DistSpGEMMPacked:
-    """k-split symbolic phase + per-band superblock pair packs (host).
-
-    Rows of every band's pair matrix live in the GLOBAL CSC-ordered C
-    slot space (identical across shards → partials psum); columns are
-    the band's B entries, conflict-colored into slab slots per band
-    (the ops.spgemm clustering, applied band-locally).
-    """
-    import scipy.sparse as sps
-
-    from ..kernels.spmv_superblock import pack_superblock
-    from ..ops.spgemm import _color_b_ranks
-
-    sa = A.to_scipy().tocsr()
-    sb = B.to_scipy().tocsr()
-    sa.sort_indices()
-    sb.sort_indices()
-    m, k = sa.shape
-    k2, n = sb.shape
-    if k != k2:
-        raise ValueError("inner dims mismatch")
-
-    pattern = ((sa != 0) @ (sb != 0)).tocsr()
-    pattern.sort_indices()
-    c_nnz = max(int(pattern.nnz), 1)
-    c_indptr = pattern.indptr
-    c_indices = pattern.indices.astype(np.int64)
-    c_rows = np.repeat(np.arange(m), np.diff(c_indptr)).astype(np.int64)
-    key_c = c_rows * n + c_indices
-    # global CSC-ordered row space (the clustering row transform)
-    order_r = np.argsort(c_indices * m + c_rows, kind="stable")
-    rank_r = np.empty(len(order_r), np.int64)
-    rank_r[order_r] = np.arange(len(order_r))
-    cg = np.full(c_nnz, c_nnz, np.int64)
-    cg[: len(rank_r)] = rank_r
-
-    from ..ops.spgemm import _estimate_pairs
-
-    packer = _band_packer(layout, _estimate_pairs(A, B), c_nnz, group,
-                          k_tiles)
-    built, src_arrs = _kband_programs(sa, sb, n_shards, group, k_tiles,
-                                      key_c, rank_r, c_nnz, B.nnz,
-                                      packer=packer)
-    p_stack, src = _stack_packs(built, src_arrs)
-    if b_permute not in ("sort", "clos"):
-        raise ValueError(f"unknown b_permute {b_permute!r}")
-    b_keys = (_stack_b_clos(np.asarray(src), B.nnz)
-              if b_permute == "clos" else None)
-    if b_keys is None:
-        b_keys = _stack_b_keys(np.asarray(src), B.nnz)
-
-    # C^T structure (slots in the kernel's native CSC order)
-    ct_counts = np.bincount(c_indices, minlength=n)
-    ct_indptr = np.concatenate([[0], np.cumsum(ct_counts)])
-    ct_indices_arr = c_rows[order_r]
-    ct_row_ids_arr = c_indices[order_r]
-    idt = default_index_dtype
-    return DistSpGEMMPacked(
-        p_stack=p_stack,
-        src=jnp.asarray(src, idt),
-        b_data=B.data,
-        c_gather=jnp.asarray(cg, jnp.int32),
-        c_indptr=jnp.asarray(c_indptr, idt),
-        c_indices=jnp.asarray(
-            np.concatenate([c_indices,
-                            np.zeros(max(c_nnz - len(c_indices), 0),
-                                     np.int64)]), idt),
-        c_row_ids=jnp.asarray(
-            np.concatenate([c_rows,
-                            np.full(max(c_nnz - len(c_rows), 0), m,
-                                    np.int64)]), idt),
-        ct_indptr=jnp.asarray(ct_indptr, idt),
-        ct_indices=jnp.asarray(
-            np.concatenate([ct_indices_arr,
-                            np.zeros(max(c_nnz - len(ct_indices_arr), 0),
-                                     np.int64)]), idt),
-        ct_row_ids=jnp.asarray(
-            np.concatenate([ct_row_ids_arr,
-                            np.full(max(c_nnz - len(ct_row_ids_arr), 0),
-                                    n, np.int64)]), idt),
-        shape=(m, n), n_shards=n_shards, c_nnz=int(pattern.nnz),
-        c_perm=plan_permutation_auto(cg, n_src=c_nnz),
-        b_keys=b_keys,
-    )
-
-
-def _band_packer(layout, n_pairs, c_nnz, group, k_tiles):
-    """Resolve the per-band pair-program packer: the octet layout when
-    rows carry ~1 pair (same rule as the single-chip auto; measured 8.5×
-    the superblock kernel at the XL point), else superblock."""
-    if layout not in ("auto", "superblock", "octet"):
-        raise ValueError(f"unknown layout {layout!r}")
-    use_octet = (layout == "octet"
-                 or (layout == "auto" and n_pairs <= 2 * max(c_nnz, 1)))
-    if use_octet:
-        from ..kernels.spmv_octet import pack_octet
-
-        return lambda csr: pack_octet(csr, group=32, k_octets=64)
-    return None  # _kband_programs defaults to pack_superblock
-
-
-def _stack_packs(built, src_arrs):
-    from ..kernels.spmv_octet import Octet
-
-    if isinstance(built[0], Octet):
-        return _stack_octets(built, src_arrs)
-    return _stack_superblocks(built, src_arrs)
-
-
-def _kband_programs(sa, sb, n_shards, group, k_tiles, key_c, rank_r,
-                    c_rows_pad, b_nnz_global, packer=None):
-    """Per-k-band superblock pair programs against a padded C row space.
-
-    ``key_c``/``rank_r`` define the caller's C slot ordering (CSC rank);
-    every pack's P matrix gets ``c_rows_pad`` rows so packs from
-    different callers (e.g. the row bands of the 2-D plan) stack with
-    equal static shapes.
-    """
-    import scipy.sparse as sps
-
-    from ..kernels.spmv_superblock import pack_superblock
-    from ..ops.spgemm import _color_b_ranks
-
-    if packer is None:
-        packer = lambda csr: pack_superblock(csr, group=group,
-                                             k_tiles=k_tiles)
-    m, k = sa.shape
-    n = sb.shape[1]
-    band = -(-k // n_shards)
-    per = []
-    b_indptr_g = sb.indptr.astype(np.int64)
-    for s in range(n_shards):
-        k0, k1 = s * band, min((s + 1) * band, k)
-        if k0 >= k:
-            per.append((np.zeros(0, np.int64),) * 3 + (0, 0))
-            continue
-        a_band = sa[:, k0:k1].tocsr()
-        b_band = sb[k0:k1, :].tocsr()
-        a_band.sort_indices()
-        b_band.sort_indices()
-        b_indptr = b_band.indptr.astype(np.int64)
-        a_rows = np.repeat(np.arange(m), np.diff(a_band.indptr))
-        ka = a_band.indices.astype(np.int64)
-        cnt = b_indptr[ka + 1] - b_indptr[ka]
-        npair = int(cnt.sum())
-        pa_v = np.repeat(np.arange(len(ka)), cnt)
-        starts = np.cumsum(cnt) - cnt
-        off = np.arange(npair) - np.repeat(starts, cnt)
-        pb_v = b_indptr[ka[pa_v]] + off
-        key_p = (a_rows[pa_v].astype(np.int64) * n
-                 + b_band.indices[pb_v].astype(np.int64))
-        tgt_v = np.searchsorted(key_c, key_p)
-        per.append((a_band.data[pa_v].astype(np.float64), pb_v, tgt_v,
-                    int(b_band.nnz), int(b_indptr_g[k0])))
-
-    # per-band column coloring; uniform padded column space
-    packs, srcs, p_cols_list = [], [], []
-    for (av, pb_v, tgt_v, bnnz, goff) in per:
-        if bnnz == 0:
-            packs.append(None)
-            srcs.append(np.zeros(0, np.int64))
-            p_cols_list.append(1024)
-            continue
-        p_cols_list.append(int(-(-bnnz // 1024)) * 1024)
-        packs.append((av, pb_v, tgt_v, bnnz, goff))
-        srcs.append(None)
-    p_cols = max(p_cols_list)
-
-    built, src_arrs = [], []
-    for s, item in enumerate(packs):
-        if item is None:
-            P = sps.csr_matrix((c_rows_pad, p_cols), dtype=np.float32)
-            built.append(pack_superblock(CSR.from_scipy(P), group=group,
-                                         k_tiles=k_tiles))
-            src_arrs.append(np.full(p_cols, b_nnz_global, np.int64))
-            continue
-        av, pb_v, tgt_v, bnnz, goff = item
-        k0 = s * band
-        k1 = min((s + 1) * band, k)
-        b_band = sb[k0:k1, :].tocsr()
-        b_band.sort_indices()
-        bb_row = np.repeat(np.arange(b_band.shape[0]),
-                           np.diff(b_band.indptr)).astype(np.int64)
-        bb_key = b_band.indices.astype(np.int64) * b_band.shape[0] + bb_row
-        rank = np.empty(bnnz, np.int64)
-        rank[np.argsort(bb_key, kind="stable")] = np.arange(bnnz)
-        row_of = rank_r[tgt_v]
-        alloc_r = _color_b_ranks(row_of, rank[pb_v], bnnz)
-        alloc = alloc_r[rank]
-        src = np.full(p_cols, b_nnz_global, np.int64)  # sentinel → zero
-        src[alloc] = np.arange(bnnz) + goff  # global B entry ids
-        P = sps.coo_matrix((av, (row_of, alloc[pb_v])),
-                           shape=(c_rows_pad, p_cols)).tocsr()
-        built.append(packer(CSR.from_scipy(P.astype(np.float32))))
-        src_arrs.append(src)
-    return built, src_arrs
-
-
-def _stack_octets(built, src_arrs):
-    """Stack Octet packs on a leading device axis (pad groups with
-    zero-val slabs continuing the last superblock; commit recomputed so
-    the final padded group still commits its super)."""
-    import numpy as np
-
-    n_groups = max(p.pos.shape[0] for p in built)
-    stacked = {}
-    for field in ("pos", "chk", "route", "vals", "group_super",
-                  "slab_win", "slab_oloc"):
-        arrs = []
-        for p in built:
-            a = np.asarray(getattr(p, field))
-            if field == "group_super":
-                out = np.full((n_groups,) + a.shape[1:],
-                              a[-1] if len(a) else 0, a.dtype)
-                out[: a.shape[0]] = a
-            else:
-                out = np.zeros((n_groups,) + a.shape[1:], a.dtype)
-                out[: a.shape[0]] = a
-            arrs.append(out)
-        stacked[field] = jnp.asarray(np.stack(arrs))
-    gs = np.asarray(stacked["group_super"])
-    commit = np.zeros(gs.shape, np.int32)
-    last = np.concatenate([gs[:, 1:] != gs[:, :-1],
-                           np.ones((gs.shape[0], 1), bool)], axis=1)
-    commit[last] = 1
-    p0 = built[0]
-    p_stack = dataclasses.replace(
-        p0, nnz=0, splits=(),
-        pos=stacked["pos"], chk=stacked["chk"], route=stacked["route"],
-        vals=stacked["vals"], group_super=stacked["group_super"],
-        slab_win=stacked["slab_win"], slab_oloc=stacked["slab_oloc"],
-        commit=jnp.asarray(commit))
-    return p_stack, np.stack(src_arrs)
-
-
-def _local_pair_spmv(local, x):
-    """Per-shard pair-program SpMV dispatch (superblock or octet)."""
-    from ..kernels.spmv_octet import Octet, spmv_octet
-    from ..kernels.spmv_superblock import spmv_superblock
-
-    if isinstance(local, Octet):
-        return spmv_octet(local, x)
-    return spmv_superblock(local, x)
-
-
-def _stack_superblocks(built, src_arrs):
-    """Equalize group counts and stack packs on a leading device axis
-    (zero slabs pointing at the last superblock: accumulate exactly 0 —
-    the rowlane padding stance)."""
-    n_groups = max(p.s_idx.shape[0] for p in built)
-    stacked = {}
-    for field in ("s_idx", "vals", "group_super", "slab_win", "slab_tloc"):
-        arrs = []
-        for p in built:
-            a = np.asarray(getattr(p, field))
-            g = p.s_idx.shape[0]
-            if field in ("slab_win", "slab_tloc"):
-                pad_to = n_groups * p.group
-                out = np.zeros((pad_to,) + a.shape[1:], a.dtype)
-                out[: a.shape[0]] = a
-            elif field == "group_super":
-                out = np.full((n_groups,) + a.shape[1:],
-                              a[-1] if len(a) else 0, a.dtype)
-                out[: a.shape[0]] = a
-            else:
-                out = np.zeros((n_groups,) + a.shape[1:], a.dtype)
-                out[: a.shape[0]] = a
-            arrs.append(out)
-        stacked[field] = jnp.asarray(np.stack(arrs))
-    p0 = built[0]
-    p_stack = dataclasses.replace(
-        p0, nnz=0,
-        s_idx=stacked["s_idx"], vals=stacked["vals"],
-        group_super=stacked["group_super"], slab_win=stacked["slab_win"],
-        slab_tloc=stacked["slab_tloc"])
-    return p_stack, np.stack(src_arrs)
-
-
-def _stack_b_keys(src_arrs, n_src):
-    """Per-shard sort keys for the shard-local b-permute.  Each shard's
-    ``x = bvals[src]`` gather (~6.7 ns/element) becomes a planned
-    ``lax.sort_key_val`` (ops/permute.py: 6-9× at every size ≥65k).
-    Caps are max(p_cols, n_src) — identical across shards, so the keys
-    stack on the device axis and shard with the pack."""
-    keys = [plan_gather_permutation(np.asarray(s), n_src=n_src,
-                                    force_sort=True).keys
-            for s in src_arrs]
-    return jnp.stack(keys)
-
-
-def _stack_b_clos(src_arrs, n_src):
-    """Per-shard CLOS permutation plans stacked on the device axis
-    (13-29× the sort single-chip, probe_permute_clos).  Geometry is
-    uniform across shards (same p_cols/n_src → same cap/R/q → same
-    plane shapes), so the plans stack leaf-wise; sentinel masking is
-    applied externally from ``src`` (mask_src dropped for uniformity).
-    Returns None when the size is outside the Clos range — callers fall
-    back to the stacked sort keys."""
-    from ..ops.permute_clos import plan_clos_permutation
-
-    plans = []
-    for s in src_arrs:
-        p = plan_clos_permutation(np.asarray(s), n_src=n_src)
-        if p is None:
-            return None
-        plans.append(dataclasses.replace(p, mask_src=None))
-    return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *plans)
-
-
-def _take0(stacked):
-    """Leading-axis slice of a stacked plan/keys pytree (leaf-wise)."""
-    if stacked is None:
-        return None
-    return jax.tree_util.tree_map(lambda a: a[0], stacked)
-
-
-def _take00(stacked):
-    if stacked is None:
-        return None
-    return jax.tree_util.tree_map(lambda a: a[0, 0], stacked)
-
-
-def _local_b_x(src_row, keys_row, bvals):
-    """Shard-local permuted x: planned Clos/sort when a plan is present
-    (sentinel slots — src == n_src — read zero either way)."""
-    from ..ops.permute_clos import ClosPermutePlan, apply_clos_permutation
-
-    n_src = bvals.shape[0]
-    if keys_row is None:
-        return jnp.concatenate([bvals,
-                                jnp.zeros((1,), bvals.dtype)])[src_row]
-    if isinstance(keys_row, ClosPermutePlan):
-        from ..config import config
-
-        x = apply_clos_permutation(keys_row, bvals,
-                                   interpret=config.interpret())
-        return jnp.where(src_row < n_src, x[: src_row.shape[0]], 0)
-    cap = keys_row.shape[0]
-    vals = jnp.zeros((cap,), bvals.dtype).at[:n_src].set(bvals)
-    x = jax.lax.sort_key_val(keys_row, vals)[1][: src_row.shape[0]]
-    return jnp.where(src_row < n_src, x, 0)
-
-
-def _stack_b_keys2d(src_flat, n_src, n_row, n_k, b_permute):
-    if b_permute not in ("sort", "clos"):
-        raise ValueError(f"unknown b_permute {b_permute!r}")
-    if b_permute == "clos":
-        stacked = _stack_b_clos(src_flat, n_src)
-        if stacked is not None:
-            return jax.tree_util.tree_map(
-                lambda a: a.reshape((n_row, n_k) + a.shape[1:]), stacked)
-    return _stack_b_keys(src_flat, n_src).reshape(n_row, n_k, -1)
-
-
-def shard_dist_spgemm_packed(plan: DistSpGEMMPacked, mesh: Mesh,
-                             axis_name: str = "shard"):
-    """Place the stacked pack sharded over the mesh, C structure + B
-    values replicated."""
-    sharded = NamedSharding(mesh, P(axis_name))
-    repl = NamedSharding(mesh, P())
-    put_s = lambda a: jax.device_put(a, sharded)
-    put_r = lambda a: jax.device_put(a, repl)
-    return dataclasses.replace(
-        plan,
-        p_stack=jax.tree_util.tree_map(put_s, plan.p_stack),
-        src=put_s(plan.src),
-        b_data=put_r(plan.b_data),
-        c_gather=put_r(plan.c_gather),
-        c_indptr=put_r(plan.c_indptr),
-        c_indices=put_r(plan.c_indices),
-        c_row_ids=put_r(plan.c_row_ids),
-        c_perm=jax.tree_util.tree_map(put_r, plan.c_perm),
-        b_keys=(None if plan.b_keys is None
-                else jax.tree_util.tree_map(put_s, plan.b_keys)),
-    )
-
-
-def dist_spgemm_packed_apply(plan: DistSpGEMMPacked, mesh: Mesh,
-                             b_data=None,
-                             axis_name: str = "shard") -> CSR:
-    """Numeric phase: per-shard superblock pair-program SpMV + psum
-    (jittable; accepts new B values like spgemm_apply_packed)."""
-    bv = plan.b_data if b_data is None else b_data
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(axis_name), P(axis_name),
-                  None if plan.b_keys is None else P(axis_name), P()),
-        out_specs=P(),
-        check_vma=False,  # per-shard-pure pallas local compute
-    )
-    def run(p_local, src_local, keys_local, bvals):
-        local = jax.tree_util.tree_map(lambda a: a[0], p_local)
-        x = _local_b_x(src_local[0], _take0(keys_local), bvals)
-        y = _local_pair_spmv(local, x)
-        return jax.lax.psum(y, axis_name)
-
-    y = run(plan.p_stack, plan.src, plan.b_keys, bv)
-    if plan.c_perm is not None:
-        c_data = apply_permutation(plan.c_perm, y)
-    else:
-        ypad = jnp.concatenate([y, jnp.zeros((1,), y.dtype)])
-        c_data = ypad[plan.c_gather]
-    return CSR(indptr=plan.c_indptr, indices=plan.c_indices, data=c_data,
-               row_ids=plan.c_row_ids, shape=plan.shape, nnz=plan.c_nnz)
-
-
-def dist_spgemm_packed_apply_csc(plan: DistSpGEMMPacked, mesh: Mesh,
-                                 b_data=None,
-                                 axis_name: str = "shard") -> CSR:
-    """Numeric phase emitting ``C^T`` as CSR (C in CSC) — the kernel's
-    NATIVE slot order, skipping the c_nnz output permutation that
-    dominates the CSR-output apply (10.2× measured single-chip,
-    benchmarks/probe_spgemm_xl.py; same ~6.7 ns/element gather here)."""
-    bv = plan.b_data if b_data is None else b_data
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(axis_name), P(axis_name),
-                  None if plan.b_keys is None else P(axis_name), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def run(p_local, src_local, keys_local, bvals):
-        local = jax.tree_util.tree_map(lambda a: a[0], p_local)
-        x = _local_b_x(src_local[0], _take0(keys_local), bvals)
-        y = _local_pair_spmv(local, x)
-        return jax.lax.psum(y, axis_name)
-
-    y = run(plan.p_stack, plan.src, plan.b_keys, bv)
-    cap = plan.ct_indices.shape[0]
-    c_data = jnp.zeros((cap,), y.dtype).at[: plan.c_nnz].set(
-        y[: plan.c_nnz])
-    return CSR(indptr=plan.ct_indptr, indices=plan.ct_indices,
-               data=c_data, row_ids=plan.ct_row_ids,
-               shape=(plan.shape[1], plan.shape[0]), nnz=plan.c_nnz)
-
-
-# ---------------------------------------------------------------------------
-# 2-D block-partitioned SpGEMM: C rows × contraction (k) over a 2-D mesh.
-#
-# The SURVEY §2.4 north star names "2-D block-partitioned SpGEMM across a
-# TPU mesh" explicitly.  Device (i, s) holds the pair program of C's row
-# band i against contraction band s; partials psum over the "k" axis only
-# (1/n_row the bytes of the 1-D plan's global reduction), and C's data
-# lands row-sharded — the layout the next op (dist SpMV/SpMM on C) wants.
-# Local compute is the same superblock pair program as the 1-D plan.
-# ---------------------------------------------------------------------------
-
-
-@register_sparse_pytree
-@dataclasses.dataclass(frozen=True)
-class DistSpGEMM2D:
-    """(n_row × n_k)-stacked pair programs; C structure replicated."""
-
-    p_stack: object  # SellSuperblock with (n_row, n_k, ...) array fields
-    src: jnp.ndarray  # (n_row, n_k, p_cols) global B entry ids
-    b_data: jnp.ndarray  # (b_nnz,)
-    c_gather: jnp.ndarray  # (c_nnz,) into flattened (n_row*c_band_pad)
-    c_indptr: jnp.ndarray  # (m+1,)
-    c_indices: jnp.ndarray  # (c_cap,)
-    c_row_ids: jnp.ndarray  # (c_cap,)
-    # per-band C^T structure: shard i's kernel output order IS the local
-    # CSR order of C^T[:, band_i] — so the csc apply emits a
-    # cols-partitioned C^T with ZERO data movement (no c_nnz gather, C
-    # stays row-band sharded; the layout a downstream dist op wants)
-    ct_indptr: jnp.ndarray  # (n_row, n+1)
-    ct_indices: jnp.ndarray  # (n_row, c_band_pad) — band-local C rows
-    ct_row_ids: jnp.ndarray  # (n_row, c_band_pad) — C cols (global)
-    shape: Tuple[int, int] = dataclasses.field(metadata={"static": True})
-    n_row: int = dataclasses.field(metadata={"static": True})
-    n_k: int = dataclasses.field(metadata={"static": True})
-    c_nnz: int = dataclasses.field(metadata={"static": True})
-    c_band_pad: int = dataclasses.field(metadata={"static": True})
-    # planned sort for the CSR-output reorder (flattened band gather)
-    c_perm: object = None
-    # stacked per-device sort keys (n_row, n_k, cap) for the b-permute
-    b_keys: object = None
-
-
-def dist_spgemm_packed_plan_2d(A: CSR, B: CSR, n_row: int, n_k: int,
-                               group: int = 16,
-                               k_tiles: int = 16,
-                               layout: str = "auto",
-                               b_permute: str = "sort") -> DistSpGEMM2D:
-    """Host symbolic phase for the (row × k) 2-D mesh (see module note)."""
-    sa = A.to_scipy().tocsr()
-    sb = B.to_scipy().tocsr()
-    sa.sort_indices()
-    sb.sort_indices()
-    m, k = sa.shape
-    k2, n = sb.shape
-    if k != k2:
-        raise ValueError("inner dims mismatch")
-
-    pattern = ((sa != 0) @ (sb != 0)).tocsr()
-    pattern.sort_indices()
-    c_nnz = max(int(pattern.nnz), 1)
-    c_indptr = pattern.indptr
-    c_indices = pattern.indices.astype(np.int64)
-    c_rows = np.repeat(np.arange(m), np.diff(c_indptr)).astype(np.int64)
-
-    band_m = -(-m // n_row)
-    band_nnz = [int(c_indptr[min((i + 1) * band_m, m)]
-                    - c_indptr[min(i * band_m, m)]) for i in range(n_row)]
-    c_band_pad = max(max(band_nnz), 1)
-
-    from ..ops.spgemm import _estimate_pairs
-
-    packer2d = _band_packer(layout, _estimate_pairs(A, B), c_nnz, group,
-                            k_tiles)
-    built_all, src_all = [], []
-    gather = np.full(c_nnz, n_row * c_band_pad, np.int64)  # sentinel → 0
-    ct_indptr = np.zeros((n_row, n + 1), np.int64)
-    ct_indices = np.zeros((n_row, c_band_pad), np.int64)
-    ct_row_ids = np.full((n_row, c_band_pad), n, np.int64)
-    for i in range(n_row):
-        r0, r1 = min(i * band_m, m), min((i + 1) * band_m, m)
-        sa_i = sa[r0:r1].tocsr()
-        pat_i = pattern[r0:r1].tocsr()
-        pat_i.sort_indices()
-        rows_i = np.repeat(np.arange(pat_i.shape[0]),
-                           np.diff(pat_i.indptr)).astype(np.int64)
-        cols_i = pat_i.indices.astype(np.int64)
-        key_c_i = rows_i * n + cols_i  # ascending (CSR order)
-        order_r_i = np.argsort(cols_i * max(pat_i.shape[0], 1) + rows_i,
-                               kind="stable")
-        rank_r_i = np.empty(len(order_r_i), np.int64)
-        rank_r_i[order_r_i] = np.arange(len(order_r_i))
-        built, srcs = _kband_programs(sa_i, sb, n_k, group, k_tiles,
-                                      key_c_i, rank_r_i, c_band_pad,
-                                      B.nnz, packer=packer2d)
-        built_all += built
-        src_all += srcs
-        e0 = int(c_indptr[r0])
-        gather[e0:e0 + pat_i.nnz] = i * c_band_pad + rank_r_i
-        # band-local C^T CSR (C^T[:, r0:r1]): rank order is (col, row)
-        ct_indptr[i] = np.concatenate(
-            [[0], np.cumsum(np.bincount(cols_i, minlength=n))])
-        ct_indices[i, : pat_i.nnz] = rows_i[order_r_i]  # band-local rows
-        ct_row_ids[i, : pat_i.nnz] = cols_i[order_r_i]
-
-    p_flat, src_flat = _stack_packs(built_all, src_all)
-    # reshape every stacked array leaf to (n_row, n_k, ...) — generic
-    # over the pack family (superblock s_idx/... or octet pos/chk/...)
-    upd = {}
-    for fld in dataclasses.fields(p_flat):
-        val = getattr(p_flat, fld.name)
-        if (hasattr(val, "shape") and getattr(val, "ndim", 0) >= 1
-                and val.shape[0] == n_row * n_k):
-            upd[fld.name] = jnp.asarray(val).reshape(
-                (n_row, n_k) + val.shape[1:])
-    p_stack = dataclasses.replace(p_flat, **upd)
-
-    idt = default_index_dtype
-    return DistSpGEMM2D(
-        p_stack=p_stack,
-        src=jnp.asarray(src_flat.reshape(n_row, n_k, -1), idt),
-        b_data=B.data,
-        c_gather=jnp.asarray(gather, idt),
-        c_indptr=jnp.asarray(c_indptr, idt),
-        c_indices=jnp.asarray(
-            np.concatenate([c_indices,
-                            np.zeros(max(c_nnz - len(c_indices), 0),
-                                     np.int64)]), idt),
-        c_row_ids=jnp.asarray(
-            np.concatenate([c_rows,
-                            np.full(max(c_nnz - len(c_rows), 0), m,
-                                    np.int64)]), idt),
-        ct_indptr=jnp.asarray(ct_indptr, idt),
-        ct_indices=jnp.asarray(ct_indices, idt),
-        ct_row_ids=jnp.asarray(ct_row_ids, idt),
-        shape=(m, n), n_row=n_row, n_k=n_k, c_nnz=int(pattern.nnz),
-        c_band_pad=c_band_pad,
-        c_perm=plan_permutation_auto(gather,
-                                      n_src=n_row * c_band_pad),
-        b_keys=_stack_b_keys2d(src_flat, B.nnz, n_row, n_k, b_permute),
-    )
-
-
-def shard_dist_spgemm_packed_2d(plan: DistSpGEMM2D, mesh: Mesh):
-    """Place the 2-D stack sharded (row, k); C structure + B replicated;
-    per-band C^T structure sharded over 'row' (it travels with the band's
-    output data)."""
-    sharded = NamedSharding(mesh, P("row", "k"))
-    row_sh = NamedSharding(mesh, P("row"))
-    repl = NamedSharding(mesh, P())
-    put_s = lambda a: jax.device_put(a, sharded)
-    put_b = lambda a: jax.device_put(a, row_sh)
-    put_r = lambda a: jax.device_put(a, repl)
-    return dataclasses.replace(
-        plan,
-        p_stack=jax.tree_util.tree_map(put_s, plan.p_stack),
-        src=put_s(plan.src),
-        b_data=put_r(plan.b_data),
-        c_gather=put_r(plan.c_gather),
-        c_indptr=put_r(plan.c_indptr),
-        c_indices=put_r(plan.c_indices),
-        c_row_ids=put_r(plan.c_row_ids),
-        ct_indptr=put_b(plan.ct_indptr),
-        ct_indices=put_b(plan.ct_indices),
-        ct_row_ids=put_b(plan.ct_row_ids),
-        c_perm=jax.tree_util.tree_map(put_r, plan.c_perm),
-        b_keys=(None if plan.b_keys is None
-                else jax.tree_util.tree_map(put_s, plan.b_keys)),
-    )
-
-
-def dist_spgemm_packed_apply_2d(plan: DistSpGEMM2D, mesh: Mesh,
-                                b_data=None) -> CSR:
-    """Numeric phase on the ('row','k') mesh: per-device superblock pair
-    program + psum over 'k' only; C data lands row-sharded (jittable)."""
-    bv = plan.b_data if b_data is None else b_data
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P("row", "k"), P("row", "k"),
-                  None if plan.b_keys is None else P("row", "k"), P()),
-        out_specs=P("row"),
-        check_vma=False,  # per-shard-pure pallas local compute
-    )
-    def run(p_local, src_local, keys_local, bvals):
-        local = jax.tree_util.tree_map(lambda a: a[0, 0], p_local)
-        x = _local_b_x(src_local[0, 0], _take00(keys_local), bvals)
-        y = _local_pair_spmv(local, x)
-        return jax.lax.psum(y, "k")[None]
-
-    y = run(plan.p_stack, plan.src, plan.b_keys, bv)  # (n_row, c_band_pad)
-    if plan.c_perm is not None:
-        c_data = apply_permutation(plan.c_perm, y.reshape(-1))
-    else:
-        y_flat = jnp.concatenate([y.reshape(-1),
-                                  jnp.zeros((1,), y.dtype)])
-        c_data = y_flat[plan.c_gather]
-    return CSR(indptr=plan.c_indptr, indices=plan.c_indices, data=c_data,
-               row_ids=plan.c_row_ids, shape=plan.shape, nnz=plan.c_nnz)
-
-
-def dist_spgemm_packed_apply_2d_csc(plan: DistSpGEMM2D, mesh: Mesh,
-                                    b_data=None) -> "PartitionedCSR":
-    """Numeric phase emitting C^T cols-partitioned — ZERO output movement.
-
-    Shard i's kernel output rank order IS the local CSR order of
-    ``C^T[:, band_i]`` (band-local (col, row) — the plan sorts each band's
-    slots by C column), so the per-band output vector ``y[i]`` is already
-    the data array of a cols-partitioned C^T shard: no c_nnz gather (the
-    ~6.7 ns/element permutation the CSR apply pays), and C's data STAYS
-    row-band sharded over 'row' — the layout a downstream distributed op
-    on C wants.  The reference's ``CopyTo(trans)`` convention
-    (/root/reference/src/sparse/sparse-matrix.cc:124) lifted to the mesh.
-    """
-    from .partition import PartitionedCSR
-
-    m, n = plan.shape
-    bv = plan.b_data if b_data is None else b_data
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P("row", "k"), P("row", "k"),
-                  None if plan.b_keys is None else P("row", "k"), P()),
-        out_specs=P("row"),
-        check_vma=False,  # per-shard-pure pallas local compute
-    )
-    def run(p_local, src_local, keys_local, bvals):
-        local = jax.tree_util.tree_map(lambda a: a[0, 0], p_local)
-        x = _local_b_x(src_local[0, 0], _take00(keys_local), bvals)
-        y = _local_pair_spmv(local, x)
-        return jax.lax.psum(y, "k")[None]
-
-    y = run(plan.p_stack, plan.src, plan.b_keys, bv)  # (n_row, c_band_pad), row-sharded
-    return PartitionedCSR(
-        indptr=plan.ct_indptr,
-        indices=plan.ct_indices,
-        data=y,
-        row_ids=plan.ct_row_ids,
-        shape=(n, m),
-        n_shards=plan.n_row,
-        partition_axis="cols",
-        local_rows=n,
-        local_cols=-(-m // plan.n_row),
         nnz=plan.c_nnz,
     )

@@ -4,9 +4,9 @@ When each shard's rows only touch columns within ``halo`` of its own x
 band (banded matrices, local stencils), the full ``all_gather`` of the RHS
 is wasteful: each device only needs its own band plus a halo from its two
 ring neighbors.  This implements that exchange with ``jax.lax.ppermute``
-(ICI neighbor traffic, O(halo) instead of O(n) per device) — the
-"halo segments of the x-vector exchanged over ICI" capability of the
-north star (BASELINE.json).
+(neighbor traffic, O(halo) instead of O(n) per device) — the "halo
+segments of the x-vector exchanged between devices" capability of the
+north star.
 
 The partitioner verifies the locality assumption at build time and rebases
 column indices into the (halo | own band | halo) local frame.
@@ -149,7 +149,7 @@ def dist_spmv_halo(part: HaloPartitionedCSR, x, mesh: Mesh,
 #
 #   1. issues both ppermutes,
 #   2. computes the owned partial product — which has NO data dependency
-#      on the collectives, so XLA's scheduler runs the ICI transfer and
+#      on the collectives, so XLA's scheduler runs the transfer and
 #      the owned gather/segment-sum concurrently,
 #   3. finishes with the (small) halo partial once the halos land.
 #
@@ -270,7 +270,7 @@ def dist_spmv_halo_ring(part: RingHaloCSR, x, mesh: Mesh,
         out_specs=P(axis_name),
     )
     def run(oi, od, orr, hi_, hd, hr, x_local):
-        # 1. collectives first: the ICI transfer starts immediately
+        # 1. collectives first: the transfer starts immediately
         fwd = [(i, (i + 1) % n) for i in range(n)]
         bwd = [(i, (i - 1) % n) for i in range(n)]
         from_left = jax.lax.ppermute(x_local[-h:], axis_name, fwd)
@@ -421,12 +421,13 @@ def dist_spmv_halo_var(part: VarHaloPartitionedCSR, x, mesh: Mesh,
                        use_ragged: bool | None = None):
     """``y = A @ x`` with per-shard variable halos.
 
-    ``use_ragged=None`` picks ``ragged_all_to_all`` on TPU and the padded
-    ppermute fallback elsewhere (XLA:CPU lacks the ragged kernel)."""
+    ``use_ragged=None`` follows ``config.ragged_halo()``: the GPU runs
+    ``ragged_all_to_all``, the CPU the padded ppermute (XLA:CPU lacks the
+    ragged kernel)."""
     if use_ragged is None:
-        import jax as _jax
+        from ..config import config
 
-        use_ragged = _jax.default_backend() == "tpu"
+        use_ragged = config.ragged_halo()
     n = part.n_shards
     band = part.band
     hmax_l, hmax_r = part.hmax_l, part.hmax_r

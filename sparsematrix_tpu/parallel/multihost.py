@@ -1,12 +1,12 @@
 """Multi-host initialization helpers.
 
-On a real TPU pod slice each host runs the same program;
-``initialize_multihost`` wraps ``jax.distributed.initialize`` (env-driven
-on TPU pods) and returns the global mesh spanning every host's devices.
-The partitioners in this package shard over *global* device meshes, so the
-same ``dist_*`` code runs unchanged on 1 chip, 1 host, or N hosts — only
-the mesh construction differs.  (This round's CI exercises the simulated
-multi-device path; real 2-host runs need pod hardware.)
+On a multi-host cluster each host runs the same program;
+``initialize_multihost`` wraps ``jax.distributed.initialize`` and returns
+the global mesh spanning every host's devices.  The partitioners in this
+package shard over *global* device meshes, so the same ``dist_*`` code
+runs unchanged on 1 device, 1 host, or N hosts — only the mesh
+construction differs.  (The tests exercise the simulated multi-device
+path; a multi-host run needs a cluster.)
 """
 from __future__ import annotations
 
@@ -21,8 +21,9 @@ __all__ = ["initialize_multihost", "global_mesh"]
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed.  On TPU pods all arguments come from the
-    environment; pass them explicitly for CPU/GPU clusters."""
+    """Initialize jax.distributed.  Pass ``coordinator_address``,
+    ``num_processes`` and ``process_id`` explicitly where the cluster
+    environment does not provide them."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs = dict(

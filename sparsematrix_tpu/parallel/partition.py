@@ -3,7 +3,7 @@
 The reference has no distributed layer (SURVEY §2.4); this implements the
 north-star capability: 1-D row partitioning (SpMV/SpMM) and column
 partitioning (partial-product psum), designed for ``jax.sharding.Mesh`` +
-``shard_map`` with XLA collectives over ICI.
+``shard_map`` with XLA collectives.
 
 Representation: per-shard local CSR arrays are **stacked on a leading device
 axis** with equal static capacities, then sharded over that axis with

@@ -1,14 +1,14 @@
 """Weak-scaling accounting: per-device collective bytes and compute work.
 
-Real multi-chip hardware is not always available, but the communication
-volume of every distributed op here is exactly determined by the partition
-geometry — so scaling efficiency can be *modeled* from measured single-chip
-throughput plus per-device collective bytes, and the byte counts themselves
-are validated on the CPU-simulated mesh (tests compare these formulas
-against the actual collective operand shapes).
+The communication volume of every distributed op here is exactly
+determined by the partition geometry — so scaling efficiency can be
+*modeled* from measured single-device throughput plus per-device
+collective bytes, and the byte counts themselves are validated on the
+CPU-simulated mesh (tests compare these formulas against the actual
+collective operand shapes).
 
-Model: per-step time on ``n`` devices ≈ local compute bytes / HBM_BW +
-collective bytes / ICI_BW (overlap ignored → pessimistic).  Weak-scaling
+Model: per-step time on ``n`` devices ≈ local compute bytes / memory BW +
+collective bytes / link BW (overlap ignored → pessimistic).  Weak-scaling
 efficiency = t(1) / t(n) with the problem grown proportionally.
 
 The reference has no distributed layer (SURVEY §2.4); these formulas are
@@ -25,10 +25,10 @@ __all__ = ["CollectiveCost", "spmv_row_cost", "spmv_col_cost",
            "spmm_row_cost", "spmm_col_cost", "halo_cost",
            "weak_scaling_table"]
 
-# v5e per-chip figures (public): ~819 GB/s HBM, ~1.6 Tbit/s ICI aggregate
-# (≈ 200 GB/s usable per link direction; conservative single-link figure)
-HBM_GBPS = 819.0
-ICI_GBPS = 180.0
+# H100 SXM data sheet: 3.35 TB/s device memory; NVLink 900 GB/s to the
+# other cards of the host, 450 GB/s each way
+HBM_GBPS = 3350.0
+LINK_GBPS = 450.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,14 +38,14 @@ class CollectiveCost:
     op: str
     n_devices: int
     collective: str
-    comm_bytes_per_device: int  # bytes each device moves over ICI
-    local_compute_bytes: int  # bytes each device streams from HBM
+    comm_bytes_per_device: int  # bytes each device moves over the links
+    local_compute_bytes: int  # bytes each device streams from memory
     notes: str = ""
 
     def step_time_s(self, hbm_gbps: float = HBM_GBPS,
-                    ici_gbps: float = ICI_GBPS) -> float:
+                    link_gbps: float = LINK_GBPS) -> float:
         return (self.local_compute_bytes / (hbm_gbps * 1e9)
-                + self.comm_bytes_per_device / (ici_gbps * 1e9))
+                + self.comm_bytes_per_device / (link_gbps * 1e9))
 
 
 def _itemsize(dtype) -> int:
@@ -136,8 +136,8 @@ def weak_scaling_table(base_rows: int, nnz_per_row: int, k: int = 0,
 
     Returns one dict per device count with the modeled per-step time and
     efficiency t(1)/t(n); with ``measured_single_chip_gnnz`` the local
-    compute term is calibrated to a real measured kernel instead of the
-    HBM roofline.
+    compute term is calibrated to a real measured op instead of the
+    memory roofline.
     """
     out = []
     t1 = None
@@ -151,7 +151,7 @@ def weak_scaling_table(base_rows: int, nnz_per_row: int, k: int = 0,
         t = c.step_time_s()
         if measured_single_chip_gnnz:
             local = (nnz / n) / (measured_single_chip_gnnz * 1e9)
-            t = local + c.comm_bytes_per_device / (ICI_GBPS * 1e9)
+            t = local + c.comm_bytes_per_device / (LINK_GBPS * 1e9)
         if t1 is None:
             t1 = t
         out.append({

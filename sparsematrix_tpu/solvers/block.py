@@ -1,18 +1,18 @@
 """Block Krylov: conjugate gradients for multiple right-hand sides.
 
 Block CG (O'Leary 1980) advances all k right-hand sides through ONE
-Krylov space: each iteration is one SpMM (the multi-RHS fast paths —
-pre-dense MXU bands or the dual-gather walk), two (n,k)ᵀ(n,k) Gram
-products on the MXU, and two k×k solves — so k solves cost roughly one
+Krylov space: each iteration is one SpMM (any ``spmm`` route — CSR,
+strips or pre-dense bands), two (n,k)ᵀ(n,k) Gram products, and two k×k
+solves — so k solves cost roughly one
 solve's memory traffic per iteration, and shared spectral information
 typically LOWERS the iteration count vs running k independent CGs.
 
 Pairs with the multi-RHS preconditioner path: ``M`` may be an
-``ilu_apply``/``ic_apply`` partial over wave plans — the (n, k) residual
-panel routes through the MXU multi-RHS trisolve (8 RHS per grid pass).
+``ilu_apply``/``ic_apply`` partial — the (n, k) residual panel solves
+its columns through one vmapped triangular solve.
 
 No reference analogue (the reference has no solver layer); this is the
-TPU-idiomatic way to serve many simultaneous systems.
+idiomatic way to serve many simultaneous systems.
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ def _as_linop_mm(A) -> Callable:
 
 
 def _gram(U, V):
-    """(k,k) = Uᵀ V at HIGHEST precision (fp32 MXU truncates to bf16 at
-    default — a Gram matrix built at bf16 stalls the recurrences)."""
+    """(k,k) = Uᵀ V at HIGHEST precision (DEFAULT may run fp32 as TF32 —
+    a Gram matrix built at ~3 digits stalls the recurrences)."""
     return jnp.matmul(U.T, V, precision=_PREC)
 
 

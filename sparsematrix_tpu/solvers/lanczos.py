@@ -1,13 +1,12 @@
 """Lanczos tridiagonalization + extremal eigenvalues for symmetric sparse A.
 
 ``lanczos`` runs k steps with full reorthogonalization (a ``lax.scan`` —
-fixed trip count, MXU-friendly (k, n) basis panel); ``eigsh_lanczos``
+fixed trip count, a (k, n) basis panel); ``eigsh_lanczos``
 returns Ritz values/vectors of the leading tridiagonal block.  The dense
 (k, k) tridiagonal eigenproblem runs through ``jnp.linalg.eigh`` — k is
 small by construction.
 
-Built on ``ops.spmv`` so every format (and the packed Pallas fast paths)
-drives it.  The reference has no solver layer; this rounds out the
+Built on ``ops.spmv`` so every format drives it.  The reference has no solver layer; this rounds out the
 spectral corner of the north-star surface (PageRank/Poisson examples
 already exercise power iteration and CG).
 """
@@ -39,8 +38,7 @@ def lanczos(A, v0, k: int, reorth: bool = True) -> LanczosResult:
     """k-step Lanczos on symmetric ``A`` from start vector ``v0``.
 
     ``reorth=True`` re-projects against the full basis each step (classic
-    one-pass full reorthogonalization — one (k, n) matmul per step, which
-    the MXU makes cheap at these shapes); ``False`` is the textbook
+    one-pass full reorthogonalization — one (k, n) matmul per step); ``False`` is the textbook
     three-term recurrence.
     """
     matvec = _as_linop(A)

@@ -1,5 +1,5 @@
 """Leveled logger (ERR/WARN/INFO always on, DBG env-gated), the analogue of
-/root/reference/src/utils/log.h:6-20 built on Python logging."""
+reference src/utils/log.h:6-20 built on Python logging."""
 from __future__ import annotations
 
 import logging

@@ -1,7 +1,7 @@
 """Profiling hooks: jax.profiler traces + named time probes.
 
-The TPU equivalent of the reference's DEBUG-gated probes
-(/root/reference/src/utils/dev-tools.h:18-31): ``time_probe`` accumulates
+The equivalent of the reference's DEBUG-gated probes
+(reference src/utils/dev-tools.h:18-31): ``time_probe`` accumulates
 named wall-clock spans (host-side, cheap, always available);
 ``device_trace`` wraps a region in a jax.profiler trace for in-depth
 device-level analysis (view with TensorBoard / xprof).

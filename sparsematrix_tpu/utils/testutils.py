@@ -2,7 +2,7 @@
 
 Mirrors the reference harness's generators and tolerance policy:
   * ``gen_matrix_random`` — dense uniform values in ±1000
-    (/root/reference/src/test/blas_test.h:120-130).
+    (reference src/test/blas_test.h:120-130).
   * ``gen_sparse_index_matrix`` — density*100% nonzeros drawn as codebook
     indices into a random value table (blas_test.h:133-147; default density
     0.25, 255-entry table, blas_test.h:224,139).

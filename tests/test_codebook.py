@@ -1,7 +1,7 @@
 """Codebook format: golden micro-cases, wire-codec roundtrip, add_mat_mat.
 
 Replicates the *strategy* of the reference SelfTest
-(/root/reference/src/sparse/sparse-matrix.cc:210-313): hand-computed golden
+(reference src/sparse/sparse-matrix.cc:210-313): hand-computed golden
 micro-case, both-orientation encode, roundtrip identity on a large random
 matrix, re-encode idempotency — with independently chosen data.
 """
@@ -134,7 +134,7 @@ def test_transpose_roundtrip(rng):
 
 def test_int8_activation_gemm(rng):
     """The wgemm_plus analogue: int8 activations x int8 codebook on the
-    integer MXU path, checked at the reference's 0.1 relative policy."""
+    integer product path, checked at the reference's 0.1 relative policy."""
     from sparsematrix_tpu.formats import CodebookDense
     from sparsematrix_tpu.ops import add_mat_mat_int8, quantize_codebook
     from sparsematrix_tpu.utils.testutils import (
@@ -164,15 +164,14 @@ def test_int8_activation_gemm(rng):
     assert np.quantile(rel, 0.99) < 0.15
 
 
-def test_codebook_csr_auto_converts_to_fused(rng, monkeypatch):
+def test_codebook_csr_auto_converts_to_fused(rng):
     """spmm(auto) on a concrete CodebookCSR converts+caches a CodebookDense
-    so the default path hits the fused kernel (no caller-side prep)."""
-    from sparsematrix_tpu.config import config as cfg
+    so the default path runs the fused dequant + dense dot (no caller-side
+    prep)."""
     from sparsematrix_tpu.ops import spmm as spmm_op
     import importlib
 
     spmm_mod = importlib.import_module("sparsematrix_tpu.ops.spmm")
-    monkeypatch.setattr(cfg, "kernel_impl", "pallas")
     from sparsematrix_tpu.utils.testutils import gen_sparse_index_matrix
 
     idx, table = gen_sparse_index_matrix(rng, 40, 300, density=0.25,
@@ -191,7 +190,7 @@ def test_codebook_csr_auto_converts_to_fused(rng, monkeypatch):
 
 def test_int16_activation_gemm(rng):
     """The direct cblas_wgemm_plus analogue (int16 activations,
-    cblas.h:252-257): double-pumped int8 MXU planes.  Must be sharply
+    cblas.h:252-257): double-pumped int8 planes.  Must be sharply
     more accurate than the int8 path on the same operands."""
     from sparsematrix_tpu.formats import CodebookDense
     from sparsematrix_tpu.ops import add_mat_mat_int8, quantize_codebook

@@ -1,4 +1,4 @@
-"""Sparse direct solve (SuperLU host factor + fused device solves)."""
+"""Sparse direct solve (SuperLU host factor + level-scan device solves)."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -273,36 +273,12 @@ def test_scaling_accounting_matches_partition(rng):
     assert all(0 < row["weak_scaling_efficiency"] <= 1.0 for row in table)
 
 
-def test_dist_spmv_rowlane_kernel():
-    """Distributed SpMV with the row-lane Pallas kernel as local compute
-    (all-gather RHS + per-shard slab kernel inside shard_map)."""
-    import scipy.sparse as sps
-
-    from sparsematrix_tpu.parallel import (
-        dist_spmv_rowlane, make_mesh, partition_rowlane)
-
-    rng = np.random.default_rng(17)
-    n = 1100  # odd: bands pad to 128-multiples, last band partial
-    A = sps.random(n, n, density=0.03, format="csr",
-                   random_state=np.random.RandomState(2), dtype=np.float32)
-    A.data = rng.uniform(-10, 10, A.nnz).astype(np.float32)
-    x = rng.uniform(-1, 1, n).astype(np.float32)
-    for shards in (2, 8):
-        part = partition_rowlane(CSR.from_scipy(A), shards, group=8)
-        mesh = make_mesh(shards)
-        y = np.asarray(jax.jit(
-            lambda p, v: dist_spmv_rowlane(p, v, mesh))(part, jnp.asarray(x)))
-        np.testing.assert_allclose(y, A @ x, rtol=2e-4, atol=1e-4)
-
-
 def test_var_halo_ragged_branch_cpu_limitation(rng, mesh):
     """The ragged_all_to_all branch (halo.py dist_spmv_halo_var
     use_ragged=True) cannot execute on XLA:CPU — pin the documented
     limitation so we notice the day the backend gains the kernel.
 
-    The branch itself is validated on real TPU hardware by
-    benchmarks/probe_ragged_tpu.py (1-device mesh, oracle-exact; see
-    docs/mosaic_repros.md for the r4 run log).
+    The branch itself runs on the GPU in ``chip_smoke.py --four``.
     """
     from sparsematrix_tpu.parallel import (
         dist_spmv_halo_var, partition_csr_halo_var,
@@ -328,8 +304,8 @@ def test_var_halo_ragged_branch_cpu_limitation(rng, mesh):
         assert "ragged-all-to-all" in str(e) or "UNIMPLEMENTED" in str(e), e
         return
     # If XLA:CPU gained the kernel, the result must be correct — and the
-    # use_ragged=None auto-pick in halo.py should be widened to CPU.
+    # platform rule in config.ragged_halo() should be widened to the CPU.
     np.testing.assert_allclose(got, dense.astype(np.float64) @ np.asarray(x),
                                rtol=2e-3, atol=0.5)
     pytest.fail("XLA:CPU now supports ragged_all_to_all — update "
-                "dist_spmv_halo_var's auto-pick (halo.py) and this test")
+                "config.ragged_halo() and this test")

@@ -1,7 +1,7 @@
 """Encode→decode roundtrip + idempotency for every format.
 
 Mirrors the reference's SelfTest strategy
-(/root/reference/src/sparse/sparse-matrix.cc:247-311): large random matrix,
+(reference src/sparse/sparse-matrix.cc:247-311): large random matrix,
 odd shapes (1023×511-style to exercise remainder/padding paths), exact
 equality on roundtrip — legitimate because encode/decode move values without
 arithmetic.

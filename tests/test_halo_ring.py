@@ -1,7 +1,8 @@
 """Ring-pipelined halo SpMV: 2/4/8-device numerics and the structural
 overlap property (the owned-block partial product must not depend on the
-ppermute outputs, so XLA can run the ICI exchange concurrently)."""
+ppermute outputs, so XLA can run the exchange concurrently)."""
 import jax
+import jax.extend  # noqa: F401 — jax.extend.core.Literal below
 import jax.numpy as jnp
 import numpy as np
 import pytest

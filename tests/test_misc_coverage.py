@@ -51,12 +51,10 @@ def test_blocked_ell_stored_density(rng):
 def test_config_forcing():
     from sparsematrix_tpu.config import Config
 
-    c = Config(kernel_impl="jnp")
-    assert not c.use_pallas()
-    c2 = Config(kernel_impl="pallas")
-    assert c2.use_pallas()
-    c3 = Config(pallas_interpret="1")
-    assert c3.interpret()
+    # the platform rule: the ragged halo exchange on the GPU only
+    assert Config(_backend="gpu").ragged_halo()
+    assert not Config(_backend="cpu").ragged_halo()
+    assert Config(_backend="cpu").backend == "cpu"
 
 
 def test_repr_and_allclose(rng):

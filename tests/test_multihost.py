@@ -1,8 +1,7 @@
 """initialize_multihost executed for real (single-process distributed
 runtime on CPU — jax.distributed supports num_processes=1), in a
 subprocess so the coordinator's global state never leaks into this
-process.  Closes VERDICT r3 weak #8 (the function had never run on any
-backend); real N-host DCN runs still need pod hardware."""
+process.  A real N-host run needs a cluster."""
 import subprocess
 import sys
 

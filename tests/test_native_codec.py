@@ -65,35 +65,3 @@ def test_decode_native_matches_numpy_both_orientations(rng, trans):
     d_np = cb._decode_stream_numpy(stream, trans=trans)
     d_c = cb.decode_stream(stream, trans=trans)  # native when available
     np.testing.assert_array_equal(d_c, d_np)
-
-
-def test_native_color_ranks_bit_identical():
-    """smtpu_color_ranks must match the Python greedy exactly (same
-    tie-breaks, capacities, and window resets)."""
-    import importlib
-
-    import numpy as np
-
-    S = importlib.import_module("sparsematrix_tpu.ops.spgemm")
-    from sparsematrix_tpu import native
-
-    if native.get_lib() is None:
-        import pytest
-
-        pytest.skip("no native lib")
-    rng = np.random.default_rng(5)
-    n_ranks = 4096
-    cnt = rng.poisson(10, n_ranks)
-    q = np.repeat(np.arange(n_ranks, dtype=np.int64), cnt)
-    row = rng.integers(0, 60000, q.size)
-    perm = rng.permutation(q.size)
-    q, row = q[perm], row[perm]
-    a_native = S._color_b_ranks_native(row, q, n_ranks)
-    assert a_native is not None
-    orig = S._color_b_ranks_native
-    S._color_b_ranks_native = lambda *a: None
-    try:
-        a_py = S._color_b_ranks(row, q, n_ranks)
-    finally:
-        S._color_b_ranks_native = orig
-    np.testing.assert_array_equal(a_native, a_py)

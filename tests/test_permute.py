@@ -1,8 +1,7 @@
-"""Planned sort-network permutations (ops/permute.py).
+"""Planned permutations (ops/permute.py).
 
 The sort path must be bit-identical to the gather path — it is the same
-map, executed through ``lax.sort_key_val`` (measured 4.5× the arbitrary
-gather at 4.2 M elements, benchmarks/probe_permute.py).
+map, executed through ``lax.sort_key_val``.
 """
 import numpy as np
 import pytest
@@ -72,13 +71,12 @@ def test_jit_and_grad(rng):
 
 @pytest.mark.parametrize("output", ["csr", "csc"])
 def test_spgemm_sort_vs_gather_paths(rng, output):
-    """spgemm packed apply: permute='sort' must match permute='gather'
-    bit-for-bit and the fp64 oracle."""
+    """The CSR↔CSC reorder of an SpGEMM result as a planned permutation:
+    the sort plan must match the gather plan bit-for-bit, and both must
+    match the fp64 oracle in the target order."""
     import scipy.sparse as sps
 
-    from sparsematrix_tpu.ops.spgemm import (spgemm_apply_packed,
-                                             spgemm_apply_packed_csc,
-                                             spgemm_plan_packed)
+    from sparsematrix_tpu.ops import spgemm
 
     n = 512
     sa = sps.random(n, n, density=0.02, random_state=3, format="csr",
@@ -88,24 +86,27 @@ def test_spgemm_sort_vs_gather_paths(rng, output):
     sa.data = rng.uniform(-10, 10, sa.nnz).astype(np.float32)
     sb.data = rng.uniform(-10, 10, sb.nnz).astype(np.float32)
     A, B = CSR.from_scipy(sa), CSR.from_scipy(sb)
-    apply = (spgemm_apply_packed if output == "csr"
-             else spgemm_apply_packed_csc)
-    pp_s = spgemm_plan_packed(A, B, permute="sort")
-    pp_g = spgemm_plan_packed(A, B, permute="gather")
-    assert pp_s.c_perm.use_sort and not pp_g.c_perm.use_sort
-    got_s = np.asarray(apply(pp_s, B.data).data)
-    got_g = np.asarray(apply(pp_g, B.data).data)
+    # source order is the other output order; g maps target slots to it
+    src = spgemm(A, B, output="csc" if output == "csr" else "csr")
+    nnz = src.nnz
+    rows = np.asarray(src.row_ids)[:nnz]
+    cols = np.asarray(src.indices)[:nnz]
+    # target order: sort the source slots by the target's (row, col) key
+    g = np.lexsort((rows, cols))  # source is the transpose of the target
+    pp_s = plan_gather_permutation(g, nnz, force_sort=True)
+    pp_g = plan_gather_permutation(g, nnz, force_sort=False)
+    assert pp_s.use_sort and not pp_g.use_sort
+    got_s = np.asarray(apply_permutation(pp_s, src.data))
+    got_g = np.asarray(apply_permutation(pp_g, src.data))
     np.testing.assert_array_equal(got_s, got_g)
     want = (sa.astype(np.float64) @ sb.astype(np.float64))
     want = (want.T.tocsr() if output == "csc" else want.tocsr())
     want.sort_indices()
-    np.testing.assert_allclose(got_s[: pp_s.c_nnz], want.data, rtol=2e-3,
-                               atol=1e-3)
+    np.testing.assert_allclose(got_s, want.data, rtol=2e-3, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
-# round-5 late: row-wise (2-D) apply — each moved row is one contiguous
-# k-element run (the skew SpMM out-permutation path)
+# row-wise (2-D) apply — each moved row is one contiguous k-element run
 
 
 @pytest.mark.parametrize("force_sort", [True, False])
@@ -148,26 +149,24 @@ def test_rows_dropped_sources(rng):
         np.testing.assert_array_equal(out, x[g])
 
 
-def test_rows_clos_plan(rng):
-    from sparsematrix_tpu.ops.permute import plan_permutation_auto
-    from sparsematrix_tpu.ops.permute_clos import ClosPermutePlan
+def test_rows_auto_tier_picks_sort(rng):
+    """At SORT_MIN_ELEMS the default plan is the sort form; rows apply
+    through its keys, with sentinels and dropped sources."""
+    from sparsematrix_tpu.ops.permute import SORT_MIN_ELEMS
 
-    n, k = 1 << 14, 6
+    n, k = SORT_MIN_ELEMS, 6
     g = rng.permutation(n)
-    plan = plan_permutation_auto(g, n)
-    assert isinstance(plan, ClosPermutePlan)
+    plan = plan_gather_permutation(g, n)
+    assert plan.use_sort
     x = rng.standard_normal((n, k)).astype(np.float32)
     out = np.asarray(apply_permutation(plan, jnp.asarray(x)))
     np.testing.assert_array_equal(out, x[g])
-    # with sentinels + dropped sources through the same clos plan
-    # (n_out stays >= SORT_MIN_ELEMS so the auto tier still picks clos)
-    n_out = n
-    g2 = np.full(n_out, n + 5, np.int64)
-    live = rng.choice(n_out, size=n // 2, replace=False)
+    g2 = np.full(n, n + 5, np.int64)
+    live = rng.choice(n, size=n // 2, replace=False)
     g2[live] = rng.choice(n, size=n // 2, replace=False)
-    plan2 = plan_permutation_auto(g2, n)
-    assert isinstance(plan2, ClosPermutePlan)
+    plan2 = plan_gather_permutation(g2, n)
+    assert plan2.use_sort
     out2 = np.asarray(apply_permutation(plan2, jnp.asarray(x)))
-    want = np.zeros((n_out, k), np.float32)
+    want = np.zeros((n, k), np.float32)
     want[live] = x[g2[live]]
     np.testing.assert_array_equal(out2, want)

@@ -66,13 +66,13 @@ def test_bf16_roundtrip_and_spmv():
     (s, n, d) for s in (2, 9) for n, d in [(65, 0.3), (129, 0.08),
                                            (400, 0.02), (1030, 0.01)]
 ])
-def test_trisolve_fused_property(seed, n, density):
-    """Fused solve == scipy triangular solve across seeds/shapes/densities
-    (both orientations, including non-multiple-of-128 n)."""
+def test_trisolve_level_property(seed, n, density):
+    """Level-scan solve == scipy triangular solve across seeds/shapes/
+    densities (both orientations, including non-multiple-of-128 n)."""
     import scipy.sparse as sps
     import scipy.sparse.linalg as spla
 
-    from sparsematrix_tpu.ops import trisolve_fused_apply, trisolve_fused_plan
+    from sparsematrix_tpu.ops import trisolve_apply, trisolve_plan
 
     rng = np.random.default_rng(seed)
     dense = gen_random_dense_sparse(rng, n, n, density=density) / 1000.0
@@ -80,8 +80,8 @@ def test_trisolve_fused_property(seed, n, density):
         tri = (np.tril(dense, -1) if lower else np.triu(dense, 1))
         tri = tri + np.diag(rng.uniform(1, 2, n).astype(np.float32))
         b = rng.uniform(-1, 1, n).astype(np.float32)
-        plan = trisolve_fused_plan(CSR.fromdense(tri), lower=lower)
-        x = np.asarray(trisolve_fused_apply(plan, jnp.asarray(b)))
+        plan = trisolve_plan(CSR.fromdense(tri), lower=lower)
+        x = np.asarray(trisolve_apply(plan, jnp.asarray(b)))
         want = spla.spsolve_triangular(sps.csr_matrix(tri), b, lower=lower)
         np.testing.assert_allclose(x, want, rtol=2e-3, atol=2e-3)
 
@@ -91,19 +91,16 @@ def test_trisolve_fused_property(seed, n, density):
                                               ((700, 300), 0.02),
                                               ((2050, 2050), 0.004)]
 ])
-def test_superblock_property(seed, shape, density):
-    """Superblock SpMV == fp64 oracle across odd shapes/densities."""
-    from sparsematrix_tpu.kernels.spmv_superblock import (
-        pack_superblock,
-        spmv_superblock,
-    )
+def test_csr_spmv_odd_shapes_property(seed, shape, density):
+    """CSR SpMV (gather + segment-sum) == fp64 oracle across odd shapes
+    and densities, with the capacity padded past nnz."""
+    from sparsematrix_tpu.ops import spmv
 
     rng = np.random.default_rng(seed)
     dense = gen_random_dense_sparse(rng, *shape, density=density)
-    A = CSR.fromdense(dense)
+    A = CSR.fromdense(dense, capacity=int((dense != 0).sum()) + 77)
     x = rng.uniform(-1, 1, shape[1]).astype(np.float32)
-    packed = pack_superblock(A, group=4, k_tiles=8)
-    y = np.asarray(spmv_superblock(packed, jnp.asarray(x)))
+    y = np.asarray(spmv(A, jnp.asarray(x)))
     np.testing.assert_allclose(y, dense.astype(np.float64) @ x,
                                rtol=2e-3, atol=0.5)
 
@@ -139,12 +136,10 @@ def test_stripdense_property(seed, n, offsets):
 @pytest.mark.parametrize("seed,n,density", [
     (1, 300, 0.03), (7, 1100, 0.01),
 ])
-def test_spgemm_coloring_property(seed, n, density):
-    """Colored packed SpGEMM == scipy across shapes; fill never worse
-    than the legacy stripe."""
+def test_spgemm_pair_program_property(seed, n, density):
+    """Pair-program SpGEMM == scipy across shapes, in both output orders
+    (the CSC result exactly matches the pattern of scipy's C^T)."""
     import scipy.sparse as sps
-
-    from sparsematrix_tpu.ops import spgemm_apply_packed, spgemm_plan_packed
 
     rs = np.random.RandomState(seed)
     A = sps.random(n, n, density=density, format="csr", random_state=rs,
@@ -152,10 +147,12 @@ def test_spgemm_coloring_property(seed, n, density):
     B = sps.random(n, n, density=density, format="csr", random_state=rs,
                    dtype=np.float32)
     Ac, Bc = CSR.from_scipy(A), CSR.from_scipy(B)
-    pp = spgemm_plan_packed(Ac, Bc)
-    got = np.asarray(spgemm_apply_packed(pp, Bc.data).data)[: pp.c_nnz]
     want = (A.astype(np.float64) @ B.astype(np.float64)).tocsr()
-    want.sort_indices()
-    np.testing.assert_allclose(got, want.data, rtol=2e-4, atol=1e-4)
-    pm = spgemm_plan_packed(Ac, Bc, stripe="mod")
-    assert pp.p_packed.fill_rate >= pm.p_packed.fill_rate
+    for output, ref in (("csr", want), ("csc", want.T.tocsr())):
+        ref.sort_indices()
+        C = spgemm(Ac, Bc, method="sparse", output=output)
+        np.testing.assert_array_equal(np.asarray(C.indptr), ref.indptr)
+        np.testing.assert_array_equal(np.asarray(C.indices)[: C.nnz],
+                                      ref.indices)
+        np.testing.assert_allclose(np.asarray(C.data)[: C.nnz], ref.data,
+                                   rtol=2e-4, atol=1e-4)

@@ -1,5 +1,5 @@
 """QuantDense (int8 per-row scales) and bf16 Dense pre-densified paths —
-the round-4 unstructured-SpMM answer for the densify regime.
+the pre-densified answer for the densify regime.
 
 Accuracy bar: the reference's relative-error 0.1 policy
 (blas_test.h:163-173); measured margins are ~1-2 orders tighter.

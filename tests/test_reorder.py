@@ -54,7 +54,7 @@ def test_rcm_locality_vs_level_tradeoff(rng):
     banded depth.  (A random order has FEWER levels but scatters columns
     across every window — level-minimizing orders are a different tool.)
     """
-    from sparsematrix_tpu.ops import ilu0, trisolve_fused_plan
+    from sparsematrix_tpu.ops import ilu0, trisolve_plan
 
     side = 16
     n = side * side
@@ -66,8 +66,8 @@ def test_rcm_locality_vs_level_tradeoff(rng):
 
     def levels(M):
         L, _ = ilu0(M)
-        return trisolve_fused_plan(L, lower=True,
-                                   unit_diagonal=True).n_levels
+        return trisolve_plan(L, lower=True,
+                             unit_diagonal=True).rows.shape[0]
 
     natural = levels(CSR.from_scipy(Apo))
     rcm = levels(A_r)

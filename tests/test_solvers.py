@@ -82,12 +82,12 @@ def test_cg_matvec_callable(rng):
 
 
 def test_cg_with_packed_spmv(rng):
-    """Solvers compose with the packed Pallas SpMV layouts."""
-    from sparsematrix_tpu.kernels.spmv_pallas import pack_sell_rowpure
+    """Solvers compose with the prepared SpMV layouts (strip pack)."""
+    from sparsematrix_tpu.ops import prepare_spmv
 
     n = 64
     a = _spd(rng, n, density=0.2)
-    packed = pack_sell_rowpure(CSR.fromdense(a), group=2, rows_per_sublane=4)
+    packed = prepare_spmv(CSR.fromdense(a), layout="strip")
     b = rng.uniform(-1, 1, n).astype(np.float32)
     res = cg(packed, jnp.asarray(b), tol=1e-6, maxiter=300)
     x = np.asarray(res.x)

@@ -54,105 +54,6 @@ def test_spgemm_shape_mismatch(rng):
         spgemm(A, B)
 
 
-def test_spgemm_packed_numeric(rng):
-    """Packed numeric phase (pair program as a row-lane SpMV) matches the
-    segment-sum phase and scipy, and reuses across new B values."""
-    from sparsematrix_tpu.ops import (
-        spgemm_apply_packed,
-        spgemm_plan_packed,
-    )
-
-    da = gen_random_dense_sparse(rng, 60, 80, density=0.1)
-    db = gen_random_dense_sparse(rng, 80, 70, density=0.1)
-    A, B = CSR.fromdense(da), CSR.fromdense(db)
-    pp = spgemm_plan_packed(A, B)
-    C = spgemm_apply_packed(pp, B.data)
-    want = da.astype(np.float64) @ db.astype(np.float64)
-    np.testing.assert_allclose(np.asarray(C.todense()), want,
-                               rtol=2e-3, atol=0.5)
-    # new B values on the same pattern
-    db2 = np.where(db != 0, db * 2.0 + 1.0, 0).astype(np.float32)
-    B2 = CSR.fromdense(db2)
-    # same pattern required: align values into B's slot order
-    C2 = spgemm_apply_packed(pp, jnp.asarray(B2.data))
-    want2 = da.astype(np.float64) @ db2.astype(np.float64)
-    np.testing.assert_allclose(np.asarray(C2.todense()), want2,
-                               rtol=2e-3, atol=0.5)
-
-
-def test_spgemm_packed_clustered(rng):
-    """CSC-of-C × CSC-of-B clustering: same numbers, far better slab fill
-    (the raw pair-program ordering scatters ~1 reference per row across
-    windows, collapsing row-lane fill to ~0.01)."""
-    from sparsematrix_tpu.ops import spgemm_apply_packed, spgemm_plan_packed
-
-    da = gen_random_dense_sparse(rng, 300, 280, density=0.03)
-    db = gen_random_dense_sparse(rng, 280, 310, density=0.03)
-    A, B = CSR.fromdense(da), CSR.fromdense(db)
-    raw = spgemm_plan_packed(A, B, cluster=False)
-    clu = spgemm_plan_packed(A, B, cluster=True)
-    assert clu.p_packed.fill_rate > 2.0 * raw.p_packed.fill_rate
-    want = da.astype(np.float64) @ db.astype(np.float64)
-    for pp in (raw, clu):
-        C = spgemm_apply_packed(pp, B.data)
-        np.testing.assert_allclose(np.asarray(C.todense()), want,
-                                   rtol=2e-3, atol=0.5)
-    # pattern reuse with new B values goes through the permutation too
-    db2 = np.where(db != 0, db * 0.5 - 2.0, 0).astype(np.float32)
-    B2 = CSR.fromdense(db2)
-    C2 = spgemm_apply_packed(clu, jnp.asarray(B2.data))
-    want2 = da.astype(np.float64) @ db2.astype(np.float64)
-    np.testing.assert_allclose(np.asarray(C2.todense()), want2,
-                               rtol=2e-3, atol=0.5)
-
-
-def test_spgemm_packed_csc_output(rng):
-    """Clustered plans emit C^T (CSC of C) with no extra permutation."""
-    from sparsematrix_tpu.ops import (
-        spgemm_apply_packed_csc,
-        spgemm_plan_packed,
-    )
-
-    da = gen_random_dense_sparse(rng, 90, 70, density=0.08)
-    db = gen_random_dense_sparse(rng, 70, 110, density=0.08)
-    A, B = CSR.fromdense(da), CSR.fromdense(db)
-    pp = spgemm_plan_packed(A, B, cluster=True)
-    Ct = spgemm_apply_packed_csc(pp, B.data)
-    want = (da.astype(np.float64) @ db.astype(np.float64)).T
-    assert Ct.shape == (110, 90)
-    np.testing.assert_allclose(np.asarray(Ct.todense()), want,
-                               rtol=2e-3, atol=0.5)
-    # raw (unclustered) plans cannot emit CSC
-    raw = spgemm_plan_packed(A, B, cluster=False)
-    with pytest.raises(ValueError):
-        spgemm_apply_packed_csc(raw, B.data)
-
-
-def test_spgemm_packed_grad_bdata(rng):
-    """d/db_data flows through the scatter → rowlane VJP → unpermute chain."""
-    from sparsematrix_tpu.ops import spgemm_apply_packed, spgemm_plan_packed
-
-    da = gen_random_dense_sparse(rng, 40, 48, density=0.1)
-    db = gen_random_dense_sparse(rng, 48, 36, density=0.1)
-    A, B = CSR.fromdense(da), CSR.fromdense(db)
-    pp = spgemm_plan_packed(A, B, cluster=True)
-    w = np.random.default_rng(0).standard_normal(
-        int(pp.c_indices.shape[0])).astype(np.float32)
-
-    def loss(bd):
-        return jnp.vdot(jnp.asarray(w), spgemm_apply_packed(pp, bd).data)
-
-    g = np.asarray(jax.grad(loss)(B.data))
-    # finite-difference check on a few entries
-    bd = np.asarray(B.data)
-    for i in (0, len(bd) // 2, len(bd) - 1):
-        e = np.zeros_like(bd)
-        e[i] = 1.0
-        h = 0.5
-        fd = (loss(jnp.asarray(bd + h * e)) - loss(jnp.asarray(bd - h * e))) / (2 * h)
-        np.testing.assert_allclose(g[i], float(fd), rtol=2e-2, atol=1e-3)
-
-
 def test_spgemm_densify_matches_scipy(rng):
     import scipy.sparse as sps
 
@@ -193,56 +94,6 @@ def test_spgemm_densify_jittable(rng):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
-def test_spgemm_packed_differentiable_in_b(rng):
-    """d/db_data flows through the packed numeric phase (kernel VJP)."""
-    from sparsematrix_tpu.ops import spgemm_apply_packed, spgemm_plan_packed
-
-    n = 96
-    A = CSR.fromdense(gen_random_dense_sparse(rng, n, n, density=0.08))
-    B = CSR.fromdense(gen_random_dense_sparse(rng, n, n, density=0.08))
-    pp = spgemm_plan_packed(A, B)
-    w = jnp.asarray(np.random.default_rng(1).standard_normal(
-        pp.c_indices.shape[0]).astype(np.float32))
-
-    def loss(bd):
-        return jnp.vdot(w, spgemm_apply_packed(pp, bd).data)
-
-    g = jax.grad(loss)(jnp.asarray(B.data))
-    # the numeric phase is LINEAR in b_data (C.data = P @ b_data), so the
-    # directional derivative equals the loss at the direction itself
-    v = np.random.default_rng(2).standard_normal(B.data.shape[0]).astype(
-        np.float32)
-    want = float(loss(jnp.asarray(v)))
-    got = float(np.dot(np.asarray(g), v))
-    np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-3)
-
-
-def test_spgemm_packed_coloring_fill(rng):
-    """The conflict-graph coloring (stripe='color', default) must not
-    change results and must pack at least as densely as the legacy
-    round-robin stripe."""
-    from sparsematrix_tpu.ops import spgemm_apply_packed, spgemm_plan_packed
-
-    n = 512
-    A = CSR.fromdense(gen_random_dense_sparse(rng, n, n, density=0.02))
-    B = CSR.fromdense(gen_random_dense_sparse(rng, n, n, density=0.02))
-    pc = spgemm_plan_packed(A, B, stripe="color")
-    pm = spgemm_plan_packed(A, B, stripe="mod")
-    got_c = np.asarray(spgemm_apply_packed(pc, B.data).data)[: pc.c_nnz]
-    got_m = np.asarray(spgemm_apply_packed(pm, B.data).data)[: pm.c_nnz]
-    np.testing.assert_allclose(got_c, got_m, rtol=1e-5, atol=1e-5)
-    assert pc.p_packed.fill_rate >= pm.p_packed.fill_rate
-    # coloring invariant: within a window each (sublane) holds <= 128 ranks
-    # (capacity respected) is implied by a valid pack; check correctness vs
-    # scipy too
-    import scipy.sparse as sps
-
-    want = (A.to_scipy().astype(np.float64)
-            @ B.to_scipy().astype(np.float64)).tocsr()
-    want.sort_indices()
-    np.testing.assert_allclose(got_c, want.data, rtol=1e-4, atol=1e-4)
-
-
 def test_spgemm_method_auto_routes(rng):
     """method='auto' must pick densify at small-dense shapes and stay
     correct under both forced methods."""
@@ -272,34 +123,13 @@ def test_spgemm_auto_picks_sparse_at_scale():
     m = k = n = 16384
     pairs = 4_400_000
     t_dense = 2.0 * m * k * n / sg._DENSE_FLOPS_PER_S
-    t_sparse = pairs / sg._PACKED_PAIRS_PER_S
+    t_sparse = pairs / sg._PAIRS_PER_S
     assert t_sparse < t_dense
 
 
-def test_spgemm_packed_dualgather_layout(rng):
-    """The dualgather pair-program layout stays exact (measured slower
-    than superblock on pair matrices — kept as an explicit option)."""
-    import scipy.sparse as sps
-    from sparsematrix_tpu.ops.spgemm import (spgemm_apply_packed,
-                                             spgemm_plan_packed)
-
-    n = 512
-    a = sps.random(n, n, 0.02, random_state=3, format="csr",
-                   dtype=np.float32)
-    b = sps.random(n, n, 0.02, random_state=4, format="csr",
-                   dtype=np.float32)
-    pp = spgemm_plan_packed(CSR.from_scipy(a), CSR.from_scipy(b),
-                            layout="dualgather", k_tiles=4, group=8)
-    got = np.asarray(spgemm_apply_packed(pp, CSR.from_scipy(b).data).data)
-    want = (a.astype(np.float64) @ b.astype(np.float64)).tocsr()
-    want.sort_indices()
-    np.testing.assert_allclose(got[: pp.c_nnz], want.data, rtol=1e-4,
-                               atol=1e-4)
-
-
 def test_spgemm_output_csc_dispatch(rng):
-    """spgemm(output='csc') returns C^T as CSR (CopyTo(trans) analogue) —
-    the path that skips the measured-dominant output permutation."""
+    """spgemm(output='csc') returns C^T as CSR (CopyTo(trans) analogue),
+    planned as Bᵀ @ Aᵀ on the pair program."""
     import scipy.sparse as sps
 
     from sparsematrix_tpu.ops.spgemm import spgemm
@@ -314,9 +144,74 @@ def test_spgemm_output_csc_dispatch(rng):
     A, B = CSR.from_scipy(sa), CSR.from_scipy(sb)
     Ct = spgemm(A, B, output="csc")
     want = (sa.astype(np.float64) @ sb.astype(np.float64)).T.tocsr()
+    assert Ct.shape == (n, n)
     np.testing.assert_allclose(np.asarray(Ct.todense()),
                                want.todense(), rtol=2e-3, atol=0.5)
+    # every method honours the CSC output
+    for method in ("sparse", "densify"):
+        Cm = spgemm(A, B, method=method, output="csc")
+        np.testing.assert_allclose(np.asarray(Cm.todense()),
+                                   want.todense(), rtol=2e-3, atol=0.5)
     import pytest
 
     with pytest.raises(ValueError):
         spgemm(A, B, output="weird")
+
+
+def test_spgemm_apply_reuses_plan_for_new_values(rng):
+    """The numeric phase multiplies any values on the planned patterns."""
+    da = gen_random_dense_sparse(rng, 60, 80, density=0.1)
+    db = gen_random_dense_sparse(rng, 80, 70, density=0.1)
+    A, B = CSR.fromdense(da), CSR.fromdense(db)
+    plan = spgemm_plan(A, B)
+    db2 = np.where(db != 0, db * 2.0 + 1.0, 0).astype(np.float32)
+    C2 = spgemm_apply(plan, A.data, CSR.fromdense(db2).data)
+    want2 = da.astype(np.float64) @ db2.astype(np.float64)
+    np.testing.assert_allclose(np.asarray(C2.todense()), want2,
+                               rtol=2e-3, atol=0.5)
+
+
+def test_spgemm_apply_grad_bdata(rng):
+    """d/db_data through gather → multiply → segment_sum, against central
+    finite differences (the phase is linear in b_data, so they are exact
+    up to rounding)."""
+    da = gen_random_dense_sparse(rng, 40, 48, density=0.1)
+    db = gen_random_dense_sparse(rng, 48, 36, density=0.1)
+    A, B = CSR.fromdense(da), CSR.fromdense(db)
+    plan = spgemm_plan(A, B)
+    w = np.random.default_rng(0).standard_normal(
+        int(plan.c_indices.shape[0])).astype(np.float32)
+
+    def loss(bd):
+        return jnp.vdot(jnp.asarray(w), spgemm_apply(plan, A.data, bd).data)
+
+    g = np.asarray(jax.grad(loss)(B.data))
+    bd = np.asarray(B.data)
+    for i in (0, len(bd) // 2, len(bd) - 1):
+        e = np.zeros_like(bd)
+        e[i] = 1.0
+        h = 0.5
+        fd = (loss(jnp.asarray(bd + h * e))
+              - loss(jnp.asarray(bd - h * e))) / (2 * h)
+        np.testing.assert_allclose(g[i], float(fd), rtol=2e-2, atol=1e-3)
+
+
+def test_spgemm_apply_grad_adata_linear(rng):
+    """The numeric phase is LINEAR in a_data: the directional derivative
+    along v equals the loss evaluated at v."""
+    n = 96
+    A = CSR.fromdense(gen_random_dense_sparse(rng, n, n, density=0.08))
+    B = CSR.fromdense(gen_random_dense_sparse(rng, n, n, density=0.08))
+    plan = spgemm_plan(A, B)
+    w = jnp.asarray(np.random.default_rng(1).standard_normal(
+        plan.c_indices.shape[0]).astype(np.float32))
+
+    def loss(ad):
+        return jnp.vdot(w, spgemm_apply(plan, ad, B.data).data)
+
+    g = jax.grad(loss)(jnp.asarray(A.data))
+    v = np.random.default_rng(2).standard_normal(A.data.shape[0]).astype(
+        np.float32)
+    np.testing.assert_allclose(float(np.dot(np.asarray(g), v)),
+                               float(loss(jnp.asarray(v))),
+                               rtol=2e-3, atol=1e-3)

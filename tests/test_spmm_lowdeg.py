@@ -1,5 +1,5 @@
-"""Sliced-ELL row-gather SpMM (ops/spmm_lowdeg.py): packing, auto
-routing, oracle, autodiff."""
+"""Sliced-ELL row-gather SpMM (ops/spmm_lowdeg.py): packing, routing of a
+pack through ``spmm``, oracle, autodiff."""
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -39,12 +39,14 @@ def test_sliced_ell_auto_route(rng):
     sp.data = rng.uniform(-5, 5, sp.nnz).astype(np.float32)
     A = CSR.from_scipy(sp)
     X = jnp.asarray(rng.uniform(-1, 1, (n, 8)).astype(np.float32))
-    got = np.asarray(spmm(A, X))  # auto: mean deg 2 → sliced-ell
-    from sparsematrix_tpu.ops.spmm import _dg_pack_of
-
-    assert isinstance(_dg_pack_of(A), SlicedEllMM)
+    pk = pack_sliced_ell(A)
+    assert isinstance(pk, SlicedEllMM)
+    got = np.asarray(spmm(pk, X))  # a pack routes to the sliced-ELL product
     want = sp.astype(np.float64) @ np.asarray(X, np.float64)
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=0.5)
+    # the CSR's own auto route agrees
+    np.testing.assert_allclose(np.asarray(spmm(A, X)), got, rtol=1e-5,
+                               atol=1e-4)
 
 
 def test_sliced_ell_grad(rng):

@@ -1,7 +1,7 @@
 """SpMV/SpMM vs dense oracle for every format, under jit.
 
 Differential-oracle strategy from the reference harness
-(/root/reference/src/test/blas_test.h:240-246): compute on the sparse path,
+(reference src/test/blas_test.h:240-246): compute on the sparse path,
 check against the densified operand's dense product.
 """
 import jax

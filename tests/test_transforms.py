@@ -1,6 +1,6 @@
 """JAX transform coverage: vmap over RHS batches, bf16 data, scan-compat.
 
-These are TPU-framework table stakes with no reference analogue: the
+These are framework table stakes with no reference analogue: the
 containers are pytrees, so ops must compose with vmap/scan/jit.
 """
 import jax

@@ -227,13 +227,8 @@ def test_ilu_fixpoint_cg_poisson(rng):
 
 
 # ---------------------------------------------------------------------------
-# Level-packed trisolve (one row-lane kernel call per level)
+# Level-scheduled plan + scan, driven directly
 # ---------------------------------------------------------------------------
-
-from sparsematrix_tpu.ops import (  # noqa: E402
-    trisolve_level_apply,
-    trisolve_level_plan,
-)
 
 
 @pytest.mark.parametrize("n", [16, 64, 150])
@@ -243,8 +238,8 @@ def test_trisolve_level_exact(rng, n, lower):
     if not lower:
         M = M.T.copy()
     b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_level_plan(CSR.fromdense(M), lower=lower)
-    x = np.asarray(trisolve_level_apply(plan, jnp.asarray(b)))
+    plan = trisolve_plan(CSR.fromdense(M), lower=lower)
+    x = np.asarray(trisolve_apply(plan, jnp.asarray(b)))
     oracle = spla.spsolve_triangular(sp.csr_matrix(M), b, lower=lower)
     np.testing.assert_allclose(x, oracle, rtol=1e-3, atol=1e-3)
 
@@ -253,9 +248,9 @@ def test_trisolve_level_jit_and_unit_diag(rng):
     n = 130
     L = _rand_lower(rng, n, unit=True)
     b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_level_plan(CSR.fromdense(L), lower=True,
+    plan = trisolve_plan(CSR.fromdense(L), lower=True,
                                unit_diagonal=True)
-    f = jax.jit(trisolve_level_apply)
+    f = jax.jit(trisolve_apply)
     x = np.asarray(f(plan, jnp.asarray(b)))
     np.testing.assert_allclose(L @ x, b, rtol=1e-3, atol=1e-3)
     # new RHS reuses the compiled plan
@@ -268,8 +263,8 @@ def test_trisolve_level_diagonal_only(rng):
     d = rng.uniform(1, 2, 8).astype(np.float32)
     A = CSR.fromdense(np.diag(d))
     b = rng.uniform(-1, 1, 8).astype(np.float32)
-    plan = trisolve_level_plan(A, lower=True)
-    x = np.asarray(trisolve_level_apply(plan, jnp.asarray(b)))
+    plan = trisolve_plan(A, lower=True)
+    x = np.asarray(trisolve_apply(plan, jnp.asarray(b)))
     np.testing.assert_allclose(x, b / d, rtol=1e-5)
 
 
@@ -279,16 +274,16 @@ def test_trisolve_level_deep_chain(rng):
     L = (np.diag(rng.uniform(1, 2, n))
          + np.diag(rng.uniform(-1, 1, n - 1), -1)).astype(np.float32)
     b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_level_plan(CSR.fromdense(L), lower=True)
-    assert plan.s_idx.shape[0] == n - 1
-    x = np.asarray(trisolve_level_apply(plan, jnp.asarray(b)))
+    plan = trisolve_plan(CSR.fromdense(L), lower=True)
+    assert plan.rows.shape == (n, 1)  # n levels of width 1
+    x = np.asarray(trisolve_apply(plan, jnp.asarray(b)))
     oracle = spla.spsolve_triangular(sp.csr_matrix(L), b, lower=True)
     np.testing.assert_allclose(x, oracle, rtol=1e-3, atol=1e-3)
 
 
 def test_ilu_level_plans_cg_poisson(rng):
-    """Level-packed ILU(0) plans precondition CG like the other families."""
-    from sparsematrix_tpu.ops import ilu0_level_plans
+    """Level-scheduled ILU(0) plans precondition CG like the fixed-point
+    family."""
     from sparsematrix_tpu.solvers import cg
 
     side = 16
@@ -299,174 +294,10 @@ def test_ilu_level_plans_cg_poisson(rng):
            + sp.kron(sp.diags([-1, -1], [-1, 1], (side, side)), Iq)).tocsr()
     A = CSR.from_scipy(Apo.astype(np.float32))
     b = rng.standard_normal(n).astype(np.float32)
-    plans = ilu0_level_plans(A)
+    plans = ilu0_plans(A)
     M = lambda r: ilu_apply(plans, r)
     x_pre = np.asarray(cg(A, jnp.asarray(b), maxiter=12, M=M, tol=0.0).x)
     x_plain = np.asarray(cg(A, jnp.asarray(b), maxiter=12, tol=0.0).x)
     r_pre = np.linalg.norm(Apo @ x_pre - b)
     r_plain = np.linalg.norm(Apo @ x_plain - b)
     assert r_pre < 0.5 * r_plain
-
-
-# ---------------------------------------------------------------------------
-# Fused trisolve (ALL levels in one pallas call)
-# ---------------------------------------------------------------------------
-
-from sparsematrix_tpu.ops import (  # noqa: E402
-    trisolve_fused_apply,
-    trisolve_fused_plan,
-)
-
-
-@pytest.mark.parametrize("n", [16, 64, 150, 300])
-@pytest.mark.parametrize("lower", [True, False])
-def test_trisolve_fused_exact(rng, n, lower):
-    M = _rand_lower(rng, n)
-    if not lower:
-        M = M.T.copy()
-    b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(M), lower=lower)
-    x = np.asarray(trisolve_fused_apply(plan, jnp.asarray(b)))
-    oracle = spla.spsolve_triangular(sp.csr_matrix(M), b, lower=lower)
-    np.testing.assert_allclose(x, oracle, rtol=1e-3, atol=1e-3)
-
-
-def test_trisolve_fused_jit_and_unit_diag(rng):
-    n = 130
-    L = _rand_lower(rng, n, unit=True)
-    b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(L), lower=True,
-                               unit_diagonal=True)
-    f = jax.jit(trisolve_fused_apply)
-    x = np.asarray(f(plan, jnp.asarray(b)))
-    np.testing.assert_allclose(L @ x, b, rtol=1e-3, atol=1e-3)
-    b2 = rng.uniform(-1, 1, n).astype(np.float32)
-    x2 = np.asarray(f(plan, jnp.asarray(b2)))
-    np.testing.assert_allclose(L @ x2, b2, rtol=1e-3, atol=1e-3)
-
-
-def test_trisolve_fused_diagonal_only(rng):
-    d = rng.uniform(1, 2, 8).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(np.diag(d)), lower=True)
-    assert plan.s_idx.shape[0] == 0
-    b = rng.uniform(-1, 1, 8).astype(np.float32)
-    x = np.asarray(trisolve_fused_apply(plan, jnp.asarray(b)))
-    np.testing.assert_allclose(x, b / d, rtol=1e-5)
-
-
-def test_trisolve_fused_deep_chain(rng):
-    # bidiagonal: n levels of width 1 — the dispatch-bound worst case the
-    # fused kernel exists for
-    n = 200
-    L = (np.diag(rng.uniform(1, 2, n))
-         + np.diag(rng.uniform(-1, 1, n - 1), -1)).astype(np.float32)
-    b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(L), lower=True)
-    assert plan.n_levels == n
-    x = np.asarray(trisolve_fused_apply(plan, jnp.asarray(b)))
-    oracle = spla.spsolve_triangular(sp.csr_matrix(L), b, lower=True)
-    np.testing.assert_allclose(x, oracle, rtol=1e-3, atol=1e-3)
-
-
-def test_trisolve_fused_poisson_ilu_factors(rng):
-    # the exact workload that motivated the kernel: ILU(0) factors of a
-    # 2-D Poisson system (many levels, multiple tiles per level)
-    side = 20
-    n = side * side
-    Iq = sp.eye(side)
-    T = sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], (side, side))
-    Apo = (sp.kron(Iq, T)
-           + sp.kron(sp.diags([-1.0, -1.0], [-1, 1], (side, side)),
-                     Iq)).tocsr()
-    from sparsematrix_tpu.ops import ilu0
-
-    L, U = ilu0(CSR.from_scipy(Apo.astype(np.float32)))
-    b = rng.standard_normal(n).astype(np.float32)
-    lp = trisolve_fused_plan(L, lower=True, unit_diagonal=True)
-    up = trisolve_fused_plan(U, lower=False)
-    y = np.asarray(trisolve_fused_apply(lp, jnp.asarray(b)))
-    x = np.asarray(trisolve_fused_apply(up, jnp.asarray(y)))
-    Ls, Us = L.to_scipy().tocsr(), U.to_scipy().tocsr()
-    want_y = spla.spsolve_triangular(Ls, b, lower=True)
-    want_x = spla.spsolve_triangular(Us, want_y, lower=False)
-    np.testing.assert_allclose(y, want_y, rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(x, want_x, rtol=1e-3, atol=1e-3)
-
-
-def test_trisolve_fused_bf16_storage(rng):
-    n = 120
-    L = _rand_lower(rng, n)
-    b = rng.uniform(-1, 1, n).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(L), lower=True,
-                               dtype=jnp.bfloat16)
-    assert plan.vals.dtype == jnp.bfloat16
-    x = np.asarray(trisolve_fused_apply(plan, jnp.asarray(b)))
-    oracle = spla.spsolve_triangular(sp.csr_matrix(L), b, lower=True)
-    np.testing.assert_allclose(x, oracle, rtol=3e-2, atol=3e-2)
-
-
-def test_trisolve_fused_grad(rng):
-    """VJP: d/db = T^-T g (solve on the transposed plan); d/dvals checked
-    against the dense-solve jacobian."""
-    n = 90
-    L = _rand_lower(rng, n)
-    b = rng.uniform(-1, 1, n).astype(np.float32)
-    w = rng.standard_normal(n).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(L), lower=True,
-                               with_transpose=True)
-
-    def loss(bb):
-        return jnp.vdot(jnp.asarray(w), trisolve_fused_apply(plan, bb))
-
-    gb = np.asarray(jax.grad(loss)(jnp.asarray(b)))
-    want_gb = np.linalg.solve(L.astype(np.float64).T, w)
-    np.testing.assert_allclose(gb, want_gb, rtol=2e-3, atol=2e-3)
-
-    import dataclasses
-
-    # values gradient along a random sparse direction, via dense oracle
-    def loss_v(vals):
-        p = dataclasses.replace(plan, vals=vals)
-        return jnp.vdot(jnp.asarray(w), trisolve_fused_apply(p, jnp.asarray(b)))
-
-    gv = jax.grad(loss_v)(plan.vals)
-    # dense oracle: dL/dT = -gbar x^T at off-diag slots
-    x = np.linalg.solve(L.astype(np.float64), b)
-    gbar = want_gb
-    # reconstruct a couple of stored slots and compare
-    sidx = np.asarray(plan.s_idx)
-    vals = np.asarray(plan.vals)
-    gvn = np.asarray(gv)
-    n_groups, GH, _ = sidx.shape
-    gt = np.asarray(plan.group_tile)
-    sw = np.asarray(plan.slab_win).reshape(n_groups, plan.group)
-    perm = (np.arange(n) if plan.perm is None else np.asarray(plan.perm))
-    checked = 0
-    for gi in range(n_groups):
-        for hh in range(GH):
-            bslab, u = hh // 8, hh % 8
-            for ll in range(128):
-                if vals[gi, hh, ll] == 0:
-                    continue
-                # slot coordinates live in the plan's level-sorted space
-                r = perm[gt[gi] * 128 + ll]
-                c = perm[sw[gi, bslab] * 1024 + u * 128
-                         + int(sidx[gi, hh, ll])]
-                want = -gbar[r] * x[c]
-                np.testing.assert_allclose(gvn[gi, hh, ll], want,
-                                           rtol=2e-3, atol=2e-3)
-                checked += 1
-    assert checked > 50
-
-
-def test_trisolve_fused_batched(rng):
-    from sparsematrix_tpu.ops import trisolve_fused_apply_batched
-
-    n, k = 150, 5
-    L = _rand_lower(rng, n)
-    B = rng.uniform(-1, 1, (n, k)).astype(np.float32)
-    plan = trisolve_fused_plan(CSR.fromdense(L), lower=True)
-    X = np.asarray(jax.jit(trisolve_fused_apply_batched)(plan,
-                                                         jnp.asarray(B)))
-    want = spla.spsolve_triangular(sp.csr_matrix(L), B, lower=True)
-    np.testing.assert_allclose(X, want, rtol=1e-3, atol=1e-3)

@@ -11,7 +11,7 @@ from sparsematrix_tpu.utils.profiling import (
     time_probe,
 )
 from sparsematrix_tpu.utils.roofline import (
-    V5E,
+    chip_spec,
     speed_of_light_nnz_s,
     spmv_csr_bytes,
 )
@@ -57,9 +57,10 @@ def test_bench_filter():
 
 def test_roofline_numbers():
     nnz, n = 1_000_000, 10_000
-    sol = speed_of_light_nnz_s(nnz, spmv_csr_bytes(nnz, n, n))
-    # ~8 bytes/nnz + vectors → tens of Gnnz/s on v5e
-    assert 10e9 < sol < 200e9
+    h100 = chip_spec("NVIDIA H100 80GB HBM3")
+    sol = speed_of_light_nnz_s(nnz, spmv_csr_bytes(nnz, n, n), h100)
+    # ~8 bytes/nnz + vectors at 3.35 TB/s → ~400 Gnnz/s
+    assert 300e9 < sol < 450e9
 
 
 def test_bench_fn_runs():
